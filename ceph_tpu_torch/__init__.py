@@ -1,0 +1,12 @@
+"""PyTorch + CUDA port of ceph_tpu for NVIDIA Hopper (H100).
+
+Mirrors ceph_tpu's module paths: ``ceph_tpu_torch.ec.engine`` is the
+counterpart of ``ceph_tpu.ec.engine`` and so on.  Imports torch, numpy and
+the standard library only, never JAX and never ceph_tpu.  Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``; with no device given
+and no CUDA present they raise.
+
+The port so far covers the jax_rs erasure-code data path (encode, decode,
+degraded read, recovery); the GF(2) region apply runs in the hand-written
+CUDA kernels of ``csrc/``.
+"""

@@ -1,0 +1,431 @@
+"""GF(2) bitmatrix region apply on Hopper: the port's erasure-code kernels.
+
+Counterpart of ceph_tpu/ec/pallas_kernels.py.  Two hand-written CUDA C++
+kernels (``csrc/gf2_apply.cu``) carry every encode, decode, degraded read
+and recovery of the jax_rs codecs:
+
+- ``gf2_apply_words``: (kin, N4) int32 lane words -> (mout, N4) int32.
+  Replaces ``_kernel`` (pallas_kernels.py:96-117, launched by
+  ``_pallas_apply_words`` :120-141), blocked contraction included.
+- ``gf2_apply_u8``: (kin, N) uint8 byte streams, or a (B, kin, C) stripe
+  batch, -> (mout, N) / (B, mout, C) uint8.  Replaces ``_kernel_u8``
+  (:199-213, launched by ``_pallas_apply_u8_variant`` :267-288), the
+  ``enc_u8_expand`` formulation.  The TPU kernel needs the (kin, 4, N/4)
+  slot relayout; on Hopper a thread reads 16 contiguous bytes, so the port
+  kernel takes the byte streams as they are, at any length.
+
+Each kernel has a plain PyTorch version of the same function here
+(``gf2_apply_words_plain``, ``gf2_apply_u8_plain``).  A wrapper uses it only
+for a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+Each launch adds one to ``LAUNCHES[name]``.
+
+Bit order is LSB-first and lane order little-endian (byte 0 = bits 0..7 of
+the int32 word), matching ``bitcast_convert_type`` at pallas_kernels.py:
+319-332, so outputs are bit-identical to the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch.ec import bitmatrix as bm
+
+LANE_BYTES = 4      # bytes packed per int32 lane word
+KERNEL_SOURCE = "gf2_apply"
+
+# Launch counts of the kernels, by wrapper name.  Only real launches count;
+# the plain versions never touch them.
+LAUNCHES = {"gf2_apply_words": 0, "gf2_apply_u8": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- encode-variant selection -------------------------------------------------
+#
+# The JAX package chooses among alternative formulations of the same
+# contraction (pallas_kernels.py:59-93).  The port has the production
+# formulation ("", words kernel behind apply_bytes) and enc_u8_expand (byte
+# kernel).  The split2 and cmp_expand variants are still to be ported.
+ENCODE_VARIANTS = ("", "enc_u8_expand")
+UNPORTED_VARIANTS = ("enc_cmp_expand", "enc_split2", "enc_u8_split2")
+_encode_variant = ""
+
+
+def set_encode_variant(name: str) -> None:
+    """Select the formulation behind ``ShardApply.apply_bytes``.
+
+    "auto" resolves at set time to enc_u8_expand when a CUDA device is
+    present, and to "" elsewhere — as the JAX package resolves it to
+    enc_u8_expand on a TPU backend.
+    """
+    global _encode_variant
+    if name == "auto":
+        name = "enc_u8_expand" if torch.cuda.is_available() else ""
+    if name in UNPORTED_VARIANTS:
+        raise NotImplementedError(f"encode variant {name!r} is not ported yet")
+    if name not in ENCODE_VARIANTS:
+        raise ValueError(
+            f"unknown encode variant {name!r}; one of {ENCODE_VARIANTS}"
+        )
+    _encode_variant = name
+
+
+def get_encode_variant() -> str:
+    return _encode_variant
+
+
+# -- lane views ---------------------------------------------------------------
+
+def bytes_to_words(data: torch.Tensor) -> torch.Tensor:
+    """(..., N) uint8 -> (..., N/4) int32 view, zero-copy for a contiguous
+    tensor.  Both the CPU and the GPU are little-endian, so byte b of a
+    word is bits 8b..8b+7, the lane order of the JAX package."""
+    if data.dtype != torch.uint8:
+        raise TypeError(f"expected uint8, got {data.dtype}")
+    if data.shape[-1] % LANE_BYTES:
+        raise ValueError(f"byte count {data.shape[-1]} not a multiple of 4")
+    return data.contiguous().view(torch.int32)
+
+
+def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
+    """(..., N4) int32 -> (..., 4*N4) uint8 view, inverse of bytes_to_words."""
+    if words.dtype != torch.int32:
+        raise TypeError(f"expected int32, got {words.dtype}")
+    return words.contiguous().view(torch.uint8)
+
+
+# -- per-matrix constants -----------------------------------------------------
+
+def column_table(bitmatrix: np.ndarray) -> np.ndarray:
+    """(8m, 8k) GF(2) bitmatrix -> (m, k, 8) uint32 kernel table.
+
+    table[r, c, j] holds, in each of its four bytes, the byte whose bit i is
+    BM[8r+i, 8c+j]: the contribution of bit j of input byte c to output
+    byte r.  The kernel ANDs it with bit j of every input byte spread to
+    0x00/0xFF and XORs the result into row r."""
+    B = np.asarray(bitmatrix, np.uint32)
+    m8, k8 = B.shape
+    B = B.reshape(m8 // 8, 8, k8 // 8, 8)               # (r, i, c, j)
+    col = (B << np.arange(8, dtype=np.uint32)[None, :, None, None]).sum(1)
+    return np.ascontiguousarray(
+        (col.astype(np.uint32) * np.uint32(0x01010101)).astype(np.uint32)
+    )
+
+
+class GF2Constants:
+    """Device constants of one GF(2) bitmatrix, cached per device.
+
+    The table-cache role of ErasureCodeIsaTableCache: the kernel table on
+    a CUDA device, the float32 bitmatrices the plain versions contract
+    with on the CPU."""
+
+    def __init__(self, bitmatrix: np.ndarray):
+        self.bitmatrix = np.ascontiguousarray(np.asarray(bitmatrix, np.uint8))
+        m8, k8 = self.bitmatrix.shape
+        if m8 % 8 or k8 % 8:
+            raise ValueError(f"bitmatrix shape {self.bitmatrix.shape} is not "
+                             f"a multiple of 8")
+        self.mout, self.kin = m8 // 8, k8 // 8
+        self._dev: dict[tuple, torch.Tensor] = {}
+
+    def _cached(self, what: str, device: torch.device, make) -> torch.Tensor:
+        key = (what, str(device))
+        hit = self._dev.get(key)
+        if hit is None:
+            hit = make().to(device)
+            self._dev[key] = hit
+        return hit
+
+    def table(self, device: torch.device) -> torch.Tensor:
+        """(mout, kin, 8) kernel table as int32 (same bits as uint32)."""
+        return self._cached("table", device, lambda: torch.from_numpy(
+            column_table(self.bitmatrix).view(np.int32)))
+
+    def plain_bm(self, device: torch.device) -> torch.Tensor:
+        """(8m, 8k) float32 0/1 bitmatrix for the byte plain version."""
+        return self._cached("bm", device, lambda: torch.from_numpy(
+            self.bitmatrix.astype(np.float32)))
+
+    def plain_bm32(self, device: torch.device) -> torch.Tensor:
+        """(32m, 32k) float32 lane-expanded bitmatrix for the word plain
+        version (bitmatrix.expand_bitmatrix_lanes)."""
+        return self._cached("bm32", device, lambda: torch.from_numpy(
+            bm.expand_bitmatrix_lanes(self.bitmatrix).astype(np.float32)))
+
+
+# -- plain versions -----------------------------------------------------------
+
+_PLAIN_COLS = 1 << 16   # columns per chunk: bounds the bit-plane temporaries
+
+
+@contextlib.contextmanager
+def _exact_float32_matmul():
+    """0/1 operands with float32 sums <= 32*kin < 2^24 are exact.  TF32
+    would keep them exact too (0 and 1 are representable, accumulation is
+    float32), but the flag is pinned off so the claim does not rest on it."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def gf2_apply_words_plain(bm32: torch.Tensor,
+                          words: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_words, the TPU kernel's formulation:
+    (32m, 32k) float32 lane-expanded bitmatrix x (k, N4) int32 words ->
+    (m, N4) int32.  Each word expands to 32 bit planes (``>>`` on int32 is
+    arithmetic, but ``& 1`` keeps only the wanted bit), contracts in
+    float32, reduces mod 2 and packs back.  Packing sums in int64 and
+    folds values >= 2^31 to negative int32, so bit 31 survives."""
+    kin, n4 = words.shape
+    mout = bm32.shape[0] // 32
+    dev = words.device
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    weights = torch.ones(32, dtype=torch.int64, device=dev) << shifts.long()
+    out = torch.empty((mout, n4), dtype=torch.int32, device=dev)
+    with _exact_float32_matmul():
+        for s in range(0, n4, _PLAIN_COLS):
+            w = words[:, s:s + _PLAIN_COLS]
+            n = w.shape[1]
+            bits = ((w[:, None, :] >> shifts[None, :, None]) & 1)
+            acc = bm32 @ bits.reshape(kin * 32, n).to(torch.float32)
+            pb = (acc.to(torch.int64) & 1).reshape(mout, 32, n)
+            packed = (pb * weights[None, :, None]).sum(dim=1)
+            packed = torch.where(packed >= (1 << 31), packed - (1 << 32),
+                                 packed)
+            out[:, s:s + n] = packed.to(torch.int32)
+    return out
+
+
+def gf2_apply_u8_plain(bmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_u8: (8m, 8k) float32 bitmatrix x (k, N)
+    or (B, k, C) uint8 -> (m, N) / (B, m, C) uint8, by bit planes,
+    float32 contraction (exact: sums <= 8k < 2^24), mod 2 and repack."""
+    if data.ndim == 3:
+        b, kin, c = data.shape
+        flat = data.permute(1, 0, 2).reshape(kin, b * c)
+        out = gf2_apply_u8_plain(bmat, flat)
+        return out.reshape(-1, b, c).permute(1, 0, 2).contiguous()
+    kin, n = data.shape
+    mout = bmat.shape[0] // 8
+    dev = data.device
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    weights = torch.ones(8, dtype=torch.int32, device=dev) \
+        << torch.arange(8, dtype=torch.int32, device=dev)
+    out = torch.empty((mout, n), dtype=torch.uint8, device=dev)
+    with _exact_float32_matmul():
+        for s in range(0, n, _PLAIN_COLS):
+            d = data[:, s:s + _PLAIN_COLS]
+            cols = d.shape[1]
+            bits = (d[:, None, :] >> shifts[None, :, None]) & 1
+            acc = bmat @ bits.reshape(kin * 8, cols).to(torch.float32)
+            pb = (acc.to(torch.int32) & 1).reshape(mout, 8, cols)
+            out[:, s:s + cols] = (pb * weights[None, :, None]).sum(dim=1) \
+                .to(torch.uint8)
+    return out
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+def _lib():
+    from ceph_tpu_torch.common import cuda_build
+
+    lib = cuda_build.load(KERNEL_SOURCE)
+    if not getattr(lib, "_gf2_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gf2_apply_words.argtypes = [p, p, p, i, i, ll, ll, ll, p]
+        lib.gf2_apply_words.restype = ctypes.c_int
+        lib.gf2_apply_u8.argtypes = [p, p, p, i, i, ll, ll, ll, ll, ll, ll, p]
+        lib.gf2_apply_u8.restype = ctypes.c_int
+        lib._gf2_typed = True
+    return lib
+
+
+def _check_rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def _require_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def gf2_apply_words(consts: GF2Constants, words: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """(kin, N4) int32 -> (mout, N4) int32.  Launches the words kernel for
+    a CUDA tensor; the plain version for a CPU tensor."""
+    if words.dtype != torch.int32 or words.ndim != 2:
+        raise TypeError(f"expected 2-D int32 words, got {words.dtype} "
+                        f"{tuple(words.shape)}")
+    kin, n4 = words.shape
+    if kin != consts.kin:
+        raise ValueError(f"expected {consts.kin} rows, got {kin}")
+    if words.device.type == "cpu":
+        res = gf2_apply_words_plain(consts.plain_bm32(words.device), words)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    _require_cuda("gf2_apply_words", words)
+    if words.stride(1) != 1:
+        raise ValueError("gf2_apply_words: rows must be contiguous")
+    if out is None:
+        out = torch.empty((consts.mout, n4), dtype=torch.int32,
+                          device=words.device)
+    if (out.shape != (consts.mout, n4) or out.dtype != torch.int32
+            or out.device != words.device or out.stride(1) != 1):
+        raise ValueError("gf2_apply_words: bad output tensor")
+    table = consts.table(words.device)
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        rc = _lib().gf2_apply_words(
+            table.data_ptr(), words.data_ptr(), out.data_ptr(),
+            consts.kin, consts.mout, n4, words.stride(0), out.stride(0),
+            stream)
+    _check_rc("gf2_apply_words", rc)
+    LAUNCHES["gf2_apply_words"] += 1
+    return out
+
+
+def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """(kin, N) -> (mout, N), or (B, kin, C) -> (B, mout, C), uint8.
+    Launches the byte kernel for a CUDA tensor (any N; rows and the
+    stripe axis may be strided, bytes within a chunk contiguous); the
+    plain version for a CPU tensor.  ``out`` may be a strided view, such
+    as the parity rows of an encode output."""
+    if data.dtype != torch.uint8 or data.ndim not in (2, 3):
+        raise TypeError(f"expected 2-D or 3-D uint8, got {data.dtype} "
+                        f"{tuple(data.shape)}")
+    batched = data.ndim == 3
+    kin = data.shape[1] if batched else data.shape[0]
+    if kin != consts.kin:
+        raise ValueError(f"expected {consts.kin} rows, got {kin}")
+    shape = ((data.shape[0], consts.mout, data.shape[2]) if batched
+             else (consts.mout, data.shape[1]))
+    if data.device.type == "cpu":
+        res = gf2_apply_u8_plain(consts.plain_bm(data.device), data)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    _require_cuda("gf2_apply_u8", data)
+    if data.stride(-1) != 1:
+        raise ValueError("gf2_apply_u8: bytes must be contiguous")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.uint8, device=data.device)
+    if (tuple(out.shape) != shape or out.dtype != torch.uint8
+            or out.device != data.device or out.stride(-1) != 1):
+        raise ValueError("gf2_apply_u8: bad output tensor")
+    if batched:
+        nseg, seg = data.shape[0], data.shape[2]
+        in_row, in_seg = data.stride(1), data.stride(0)
+        out_row, out_seg = out.stride(1), out.stride(0)
+    else:
+        nseg, seg = 1, data.shape[1]
+        in_row, in_seg = data.stride(0), 0
+        out_row, out_seg = out.stride(0), 0
+    table = consts.table(data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = _lib().gf2_apply_u8(
+            table.data_ptr(), data.data_ptr(), out.data_ptr(),
+            consts.kin, consts.mout, seg, nseg, in_row, in_seg, out_row,
+            out_seg, stream)
+    _check_rc("gf2_apply_u8", rc)
+    LAUNCHES["gf2_apply_u8"] += 1
+    return out
+
+
+# -- the applier --------------------------------------------------------------
+
+def _byte_kernel_for(n: int) -> bool:
+    """Whether byte rows of length ``n`` go to the byte kernel: under
+    enc_u8_expand, and for any length the word view cannot take."""
+    return _encode_variant == "enc_u8_expand" or n % LANE_BYTES != 0
+
+
+class ShardApply:
+    """Apply a GF(2^8) coefficient matrix to shard-layout data.
+
+    Counterpart of ceph_tpu.ec.pallas_kernels.PallasShardApply: the same
+    (k, N) / (B, k, C) layouts and apply_words / apply_bytes / __call__
+    entries, with the per-matrix constants cached in ``consts``.  Any
+    (kin, mout) is supported; the kernels block the contraction
+    themselves, so there is no VMEM-size limit to check.
+    """
+
+    def __init__(self, coeff: np.ndarray | None = None, *,
+                 bitmatrix: np.ndarray | None = None):
+        if (coeff is None) == (bitmatrix is None):
+            raise ValueError("give exactly one of coeff or bitmatrix")
+        if bitmatrix is None:
+            bitmatrix = bm.gf_matrix_to_bitmatrix(np.asarray(coeff, np.uint8))
+        self.consts = GF2Constants(bitmatrix)
+        self.mout, self.kin = self.consts.mout, self.consts.kin
+
+    @classmethod
+    def from_lane_bitmatrix(cls, bm32: np.ndarray, kin: int) -> "ShardApply":
+        """Build from a lane-expanded (32m, 32kpad) bitmatrix, such as the
+        ``bm32`` of a JAX PallasShardApply (zero-padded columns beyond
+        32*kin are dropped).  Raises unless it is exactly the lane
+        expansion of its (8m, 8k) bitmatrix."""
+        bm32 = np.asarray(bm32).astype(np.uint8)
+        if np.any(bm32[:, 32 * kin:]):
+            raise ValueError("nonzero padding columns in bm32")
+        bm32 = bm32[:, :32 * kin]
+        m32 = bm32.shape[0]
+        B = bm32.reshape(m32 // 32, 4, 8, kin, 4, 8)[:, 0, :, :, 0, :]
+        bitmatrix = B.reshape(m32 // 4, 8 * kin)
+        if not np.array_equal(bm.expand_bitmatrix_lanes(bitmatrix), bm32):
+            raise ValueError("bm32 is not a lane-expanded bitmatrix")
+        return cls(bitmatrix=bitmatrix)
+
+    def apply_words(self, words: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+        """(k, N4) int32 -> (m, N4) int32, any N4."""
+        return gf2_apply_words(self.consts, words, out)
+
+    def apply_bytes(self, data: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+        """(k, N) uint8 byte streams -> (m, N) uint8 parity streams.
+
+        Under enc_u8_expand (the CUDA default) the byte kernel reads the
+        streams as they are.  Under "" the streams are viewed as int32
+        words and go through the words kernel, as the JAX package's
+        production path does; a length that is not a multiple of 4 takes
+        the byte kernel either way, since each byte column is
+        independent."""
+        if _byte_kernel_for(data.shape[-1]):
+            return gf2_apply_u8(self.consts, data, out)
+        par = words_to_bytes(self.apply_words(bytes_to_words(data)))
+        if out is None:
+            return par
+        out.copy_(par)
+        return out
+
+    def __call__(self, data: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+        """(k, N) or (B, k, C) uint8 -> same-layout parity bytes."""
+        if data.ndim == 2:
+            return self.apply_bytes(data, out)
+        if _byte_kernel_for(data.shape[-1]):
+            return gf2_apply_u8(self.consts, data, out)
+        batch, kin, C = data.shape
+        flat = data.permute(1, 0, 2).reshape(kin, batch * C)
+        par = self.apply_bytes(flat).reshape(self.mout, batch, C) \
+            .permute(1, 0, 2)
+        if out is None:
+            return par.contiguous()
+        out.copy_(par)
+        return out
