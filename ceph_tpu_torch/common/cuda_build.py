@@ -27,7 +27,7 @@ import time
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-SOURCES = ("gf2_apply",)     # csrc/<name>.cu files, one library each
+SOURCES = ("gf2_apply", "gf2_grouped")  # csrc/<name>.cu, one library each
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
@@ -56,8 +56,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where csrc/<name>.cu builds to (content-addressed)."""
+    """Where csrc/<name>.cu builds to (content-addressed: the source, the
+    shared csrc/*.cuh headers and the flags)."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -41,122 +41,20 @@
 // Launches run on the caller's stream, allocate nothing and do not
 // synchronise; each entry returns cudaGetLastError() of its launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gf2_io.cuh"
 
 namespace {
 
-constexpr int VEC = 4;       // 32-bit words per thread (16 bytes)
+using gf2::ByteIO;
+using gf2::VEC;
+using gf2::WordIO;
+using gf2::byte_io;
+using gf2::spread;
+using gf2::word_io;
+
 constexpr int RB = 4;        // output rows per register block
 constexpr int KC = 32;       // input rows per shared-memory table chunk
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ uint32_t spread(uint32_t w, int j) {
-  return ((w >> j) & 0x01010101u) * 0xFFu;
-}
-
-// (rows, n4) int32 words, row stride in words.
-struct WordIO {
-  const uint32_t* in;
-  uint32_t* out;
-  long long n4;
-  long long in_stride;
-  long long out_stride;
-  bool vec_ok;  // base pointers 16-byte aligned and strides multiples of 4
-
-  __device__ __forceinline__ void load(int c, long long t, uint32_t (&w)[VEC]) const {
-    const long long w0 = t * VEC;
-    const uint32_t* p = in + c * in_stride + w0;
-    if (vec_ok && w0 + VEC <= n4) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) w[v] = (w0 + v < n4) ? __ldg(p + v) : 0u;
-    }
-  }
-
-  __device__ __forceinline__ void store(int r, long long t, const uint32_t (&w)[VEC]) const {
-    const long long w0 = t * VEC;
-    uint32_t* p = out + r * out_stride + w0;
-    if (vec_ok && w0 + VEC <= n4) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        if (w0 + v < n4) p[v] = w[v];
-    }
-  }
-
-  __device__ __forceinline__ long long threads_needed() const {
-    return (n4 + VEC - 1) / VEC;
-  }
-};
-
-// Byte streams in segments: virtual column x (0 <= x < nseg*seg) is byte
-// x % seg of segment x / seg.  Row c of segment s starts at
-// in + s*in_seg_stride + c*in_row_stride.  (kin, N) streams are one segment
-// of length N; a (B, kin, C) stripe batch is B segments of length C.
-struct ByteIO {
-  const uint8_t* in;
-  uint8_t* out;
-  long long seg;
-  long long nseg;
-  long long in_row_stride;
-  long long in_seg_stride;
-  long long out_row_stride;
-  long long out_seg_stride;
-  bool vec_ok;  // 16-byte aligned bases/strides and seg % 16 == 0
-
-  __device__ __forceinline__ long long total() const { return seg * nseg; }
-
-  __device__ __forceinline__ void load(int c, long long t, uint32_t (&w)[VEC]) const {
-    const long long x0 = t * (4 * VEC);
-    if (vec_ok && x0 + 4 * VEC <= total()) {
-      const long long s = x0 / seg, o = x0 - s * seg;
-      const uint8_t* p = in + s * in_seg_stride + c * in_row_stride + o;
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-      return;
-    }
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      uint32_t word = 0;
-      for (int b = 0; b < 4; ++b) {
-        const long long x = x0 + 4 * v + b;
-        if (x < total()) {
-          const long long s = x / seg, o = x - s * seg;
-          word |= uint32_t(__ldg(in + s * in_seg_stride + c * in_row_stride + o)) << (8 * b);
-        }
-      }
-      w[v] = word;
-    }
-  }
-
-  __device__ __forceinline__ void store(int r, long long t, const uint32_t (&w)[VEC]) const {
-    const long long x0 = t * (4 * VEC);
-    if (vec_ok && x0 + 4 * VEC <= total()) {
-      const long long s = x0 / seg, o = x0 - s * seg;
-      uint8_t* p = out + s * out_seg_stride + r * out_row_stride + o;
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-      return;
-    }
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      for (int b = 0; b < 4; ++b) {
-        const long long x = x0 + 4 * v + b;
-        if (x < total()) {
-          const long long s = x / seg, o = x - s * seg;
-          out[s * out_seg_stride + r * out_row_stride + o] = uint8_t(w[v] >> (8 * b));
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ long long threads_needed() const {
-    return (total() + 4 * VEC - 1) / (4 * VEC);
-  }
-};
 
 template <class IO>
 __global__ void __launch_bounds__(THREADS)
@@ -228,17 +126,10 @@ extern "C" int gf2_apply_words(const void* table, const void* in, void* out,
                                int kin, int mout, long long n4,
                                long long in_stride, long long out_stride,
                                void* stream) {
-  WordIO io;
-  io.in = static_cast<const uint32_t*>(in);
-  io.out = static_cast<uint32_t*>(out);
-  io.n4 = n4;
-  io.in_stride = in_stride;
-  io.out_stride = out_stride;
-  io.vec_ok = (reinterpret_cast<uintptr_t>(in) % 16 == 0) &&
-              (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
-              in_stride % 4 == 0 && out_stride % 4 == 0;
-  return launch(static_cast<const uint32_t*>(table), io, (n4 + VEC - 1) / VEC,
-                kin, mout, static_cast<cudaStream_t>(stream));
+  return launch(static_cast<const uint32_t*>(table),
+                word_io(in, out, n4, in_stride, out_stride),
+                (n4 + VEC - 1) / VEC, kin, mout,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gf2_apply_u8(const void* table, const void* in, void* out,
@@ -246,21 +137,9 @@ extern "C" int gf2_apply_u8(const void* table, const void* in, void* out,
                             long long in_row_stride, long long in_seg_stride,
                             long long out_row_stride, long long out_seg_stride,
                             void* stream) {
-  ByteIO io;
-  io.in = static_cast<const uint8_t*>(in);
-  io.out = static_cast<uint8_t*>(out);
-  io.seg = seg;
-  io.nseg = nseg;
-  io.in_row_stride = in_row_stride;
-  io.in_seg_stride = in_seg_stride;
-  io.out_row_stride = out_row_stride;
-  io.out_seg_stride = out_seg_stride;
-  io.vec_ok = (reinterpret_cast<uintptr_t>(in) % 16 == 0) &&
-              (reinterpret_cast<uintptr_t>(out) % 16 == 0) && seg % 16 == 0 &&
-              in_row_stride % 16 == 0 && out_row_stride % 16 == 0 &&
-              in_seg_stride % 16 == 0 && out_seg_stride % 16 == 0;
-  const long long total = seg * nseg;
-  return launch(static_cast<const uint32_t*>(table), io,
-                (total + 4 * VEC - 1) / (4 * VEC), kin, mout,
+  return launch(static_cast<const uint32_t*>(table),
+                byte_io(in, out, seg, nseg, in_row_stride, in_seg_stride,
+                        out_row_stride, out_seg_stride),
+                (seg * nseg + 4 * VEC - 1) / (4 * VEC), kin, mout,
                 static_cast<cudaStream_t>(stream));
 }

@@ -4,8 +4,8 @@ Counterpart of ceph_tpu/ec/corpus.py, ``check`` only: for each archived
 (plugin, profile) in ``corpus/*.json`` the port encodes the same
 deterministic payload and compares the SHA-256 digest of every chunk with
 the archive.  The port never writes the corpus (the JAX package's
-``create`` owns it).  Archives of plugins the port does not have yet
-(lrc) are listed as not checked.
+``create`` owns it).  Every archive is checked: the port has every plugin
+the corpus holds (jax_rs, xor, lrc).
 
     python -m ceph_tpu_torch.ec.corpus check [--device cpu]
 """
@@ -20,10 +20,7 @@ import sys
 
 import numpy as np
 
-from ceph_tpu_torch.ec.registry import (
-    BUILTIN_PLUGINS,
-    ErasureCodePluginRegistry,
-)
+from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
 
 CORPUS_DIR = pathlib.Path(__file__).resolve().parents[2] / "corpus"
 PAYLOAD_SEED = 0xCE5  # deterministic corpus payload seed
@@ -42,24 +39,19 @@ def _encode_digests(plugin: str, profile: dict[str, str], device) -> dict:
     return {str(i): hashlib.sha256(enc[i]).hexdigest() for i in range(n)}
 
 
-def archives(corpus_dir: pathlib.Path = CORPUS_DIR
-             ) -> tuple[list[pathlib.Path], list[pathlib.Path]]:
-    """(archives of ported plugins, archives of plugins not ported yet)."""
+def archives(corpus_dir: pathlib.Path = CORPUS_DIR) -> list[pathlib.Path]:
+    """Every archive of the corpus, by name."""
     files = sorted(corpus_dir.glob("*.json"))
     if not files:
         raise FileNotFoundError(f"no corpus archives in {corpus_dir}")
-    ported, other = [], []
-    for path in files:
-        plugin = json.loads(path.read_text())["plugin"]
-        (ported if plugin in BUILTIN_PLUGINS else other).append(path)
-    return ported, other
+    return files
 
 
 def check(corpus_dir: pathlib.Path = CORPUS_DIR, device=None) -> list[str]:
-    """Check every archive of a ported plugin on ``device`` (CUDA when
-    None).  Returns the list of failures (empty == pass)."""
+    """Check every archive on ``device`` (CUDA when None).  Returns the
+    list of failures (empty == pass)."""
     failures = []
-    for path in archives(corpus_dir)[0]:
+    for path in archives(corpus_dir):
         rec = json.loads(path.read_text())
         now = _encode_digests(rec["plugin"], rec["profile"], device)
         if now != rec["chunk_sha256"]:
@@ -75,14 +67,11 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="torch device (default: CUDA, which must exist)")
     args = p.parse_args(argv)
-    ported, other = archives()
     failures = check(device=args.device)
     for f in failures:
         print(f"FAIL {f}")
-    for path in other:
-        print(f"not checked (plugin not ported yet): {path.name}")
     print("corpus: %s (%d archives checked)"
-          % ("FAIL" if failures else "OK", len(ported)))
+          % ("FAIL" if failures else "OK", len(archives())))
     return 1 if failures else 0
 
 

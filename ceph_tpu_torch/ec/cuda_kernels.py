@@ -14,10 +14,26 @@ and recovery of the jax_rs codecs:
   slot relayout; on Hopper a thread reads 16 contiguous bytes, so the port
   kernel takes the byte streams as they are, at any length.
 
+Two more (``csrc/gf2_grouped.cu``) carry the sparse repair operators
+(CLAY regenerating repair), row-grouped by ``GroupedPlan``:
+
+- ``gf2_apply_grouped``: every row group of a sparse matrix in one launch,
+  each group's support rows selected from the input.  Replaces
+  ``_gkernel_fused`` (:429-451, launched by ``_pallas_apply_grouped_fused``
+  :454-475).
+- ``gf2_apply_grouped_paired``: each group over its own gathered rows.
+  Replaces ``_gkernel`` (:495-507, launched by ``_pallas_apply_grouped``
+  :510-526).
+
+``GroupedApply`` (counterpart of ``PallasGroupedApply``) picks between them
+by the TPU applier's rule.  Both write each output row at its caller
+position, so the TPU applier's ``out[gather_rows]`` reorder is not needed.
+
 Each kernel has a plain PyTorch version of the same function here
-(``gf2_apply_words_plain``, ``gf2_apply_u8_plain``).  A wrapper uses it only
-for a tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
-Each launch adds one to ``LAUNCHES[name]``.
+(``gf2_apply_words_plain``, ``gf2_apply_u8_plain``,
+``gf2_apply_grouped_plain``, ``gf2_apply_grouped_paired_plain``).  A
+wrapper uses it only for a tensor on the CPU; for a CUDA tensor it
+launches the kernel or raises.  Each launch adds one to ``LAUNCHES[name]``.
 
 Bit order is LSB-first and lane order little-endian (byte 0 = bits 0..7 of
 the int32 word), matching ``bitcast_convert_type`` at pallas_kernels.py:
@@ -36,10 +52,12 @@ from ceph_tpu_torch.ec import bitmatrix as bm
 
 LANE_BYTES = 4      # bytes packed per int32 lane word
 KERNEL_SOURCE = "gf2_apply"
+GROUPED_SOURCE = "gf2_grouped"
 
 # Launch counts of the kernels, by wrapper name.  Only real launches count;
 # the plain versions never touch them.
-LAUNCHES = {"gf2_apply_words": 0, "gf2_apply_u8": 0}
+LAUNCHES = {"gf2_apply_words": 0, "gf2_apply_u8": 0,
+            "gf2_apply_grouped": 0, "gf2_apply_grouped_paired": 0}
 
 
 def reset_launch_counts() -> None:
@@ -429,3 +447,409 @@ class ShardApply:
             return par.contiguous()
         out.copy_(par)
         return out
+
+
+# -- sparse row-grouped repair operators --------------------------------------
+
+# The JAX plan's per-pair VMEM term (pallas_kernels.py:50, :399), kept as is
+# so that both packages group exactly the same matrices.
+_MAX_MATRIX_BYTES = 1 << 20
+# The TPU applier's route rule (pallas_kernels.py:564): the fused kernel when
+# the whole lane-expanded bitmatrix set is at most this large, else paired.
+FUSED_MAX_BYTES = 6 << 20
+
+
+def _greedy_groups(nz: np.ndarray, grp_rows: int) -> list[list[int]]:
+    """Partition rows into groups of grp_rows minimizing union supports:
+    seed each group with the unassigned row of largest support, then add
+    the rows whose supports add the fewest new columns (copy of
+    pallas_kernels.py:335-353)."""
+    mout = nz.shape[0]
+    sups = [frozenset(np.nonzero(nz[i])[0]) for i in range(mout)]
+    unassigned = set(range(mout))
+    groups: list[list[int]] = []
+    while unassigned:
+        seed = max(unassigned, key=lambda r: len(sups[r]))
+        unassigned.remove(seed)
+        grp, union = [seed], set(sups[seed])
+        while len(grp) < grp_rows and unassigned:
+            best = min(unassigned, key=lambda r: len(sups[r] - union))
+            unassigned.remove(best)
+            grp.append(best)
+            union |= sups[best]
+        groups.append(grp)
+    return groups
+
+
+class GroupedPlan:
+    """Row-grouped sparse factorization of a GF(2^8) coefficient matrix.
+
+    Counterpart of ceph_tpu.ec.pallas_kernels.GroupedPlan (:356-427): the
+    same ``groups``, ``cols``, ``cmax``, ``mac_ratio``, ``profitable`` and
+    ``gather_rows`` for the same matrix.  Repair operators are sparse (CLAY
+    k=8 m=4 d=11 single-chunk repair is 64 x 176 with ~15 nonzeros per
+    row); grouping rows by shared column support and reading only those
+    columns cuts the work by the density factor.
+
+    In place of the TPU's lane-expanded ``bms`` the port keeps, per group:
+    ``bitmatrices`` (G, 32, 8*cmax) the GF(2) bitmatrix of its (4 x cmax)
+    sub-matrix; ``tables`` (G, 4, cmax, 8) uint32 its kernel table (the
+    column tables of ``column_table``, zero for padding columns);
+    ``ncols`` (G,) its real support size; and ``slot_rows`` (G, 4) the
+    caller row of each slot, -1 for a padding slot, so a kernel writes
+    each row where the caller wants it.
+    """
+
+    GRP_ROWS = 4        # GF rows per group (a 128-row MXU tile on a TPU)
+
+    def __init__(self, coeff: np.ndarray):
+        coeff = np.asarray(coeff, np.uint8)
+        self.mout, self.kin = coeff.shape
+        nz = coeff != 0
+        grp = self.GRP_ROWS
+        natural = [list(range(g, min(g + grp, self.mout)))
+                   for g in range(0, self.mout, grp)]
+        greedy = _greedy_groups(nz, grp)
+
+        def cmax_of(groups):
+            return max(
+                max(1, int(nz[g].any(axis=0).sum())) for g in groups
+            )
+
+        groups = min((natural, greedy), key=cmax_of)
+        cmax = -(-cmax_of(groups) // 8) * 8
+        if len(groups) % 2:
+            groups = groups + [[]]      # pair padding (zero group)
+        self._set_profitability(groups, cmax)
+        if not self.profitable:
+            return                      # skip the table build
+        G = len(groups)
+        cols = np.zeros((G, cmax), np.int32)
+        bitmatrices = np.zeros((G, 8 * grp, 8 * cmax), np.uint8)
+        for gi, rows in enumerate(groups):
+            sup = np.nonzero(nz[rows].any(axis=0))[0] if rows else \
+                np.zeros(0, np.int64)
+            cols[gi, :len(sup)] = sup
+            if len(rows) == 0:
+                continue
+            sub = np.zeros((grp, cmax), np.uint8)
+            sub[:len(rows), :len(sup)] = coeff[rows][:, sup]
+            bitmatrices[gi] = bm.gf_matrix_to_bitmatrix(sub)
+        self._set_tables(cols, bitmatrices)
+
+    def _set_profitability(self, groups: list[list[int]], cmax: int) -> None:
+        grp = self.GRP_ROWS
+        G = len(groups)
+        self.cmax, self.groups = cmax, groups
+        # Profitability exactly as the JAX plan (pallas_kernels.py:390-400):
+        # grouped MACs vs the dense contraction, and the TPU's per-pair
+        # VMEM term.
+        self.mac_ratio = (G * grp * cmax) / float(self.mout * self.kin)
+        self.profitable = (
+            cmax < self.kin
+            and self.mac_ratio <= 0.6
+            and 2 * 32 * grp * 32 * cmax <= _MAX_MATRIX_BYTES
+        )
+
+    def _set_tables(self, cols: np.ndarray, bitmatrices: np.ndarray) -> None:
+        grp = self.GRP_ROWS
+        G = len(self.groups)
+        self.cols = cols
+        self.bitmatrices = bitmatrices
+        # support columns come first in cols and have nonzero blocks
+        self.ncols = np.array(
+            [len(np.nonzero(self._support_mask(g))[0]) for g in range(G)],
+            np.int32)
+        self.slot_rows = np.full((G, grp), -1, np.int32)
+        for gi, rows in enumerate(self.groups):
+            self.slot_rows[gi, :len(rows)] = rows
+        self.tables = np.stack([column_table(b) for b in bitmatrices])
+        # Caller row r sits at kernel position gather_rows[r]
+        # (pallas_kernels.py:418-426); the port's kernels write through
+        # slot_rows instead, which is the same map read the other way.
+        real_pos = [gi * grp + j
+                    for gi, rows in enumerate(self.groups)
+                    for j in range(len(rows))]
+        flat_rows = [r for rows in self.groups for r in rows]
+        order = np.argsort(np.asarray(flat_rows, np.int64), kind="stable")
+        self.gather_rows = np.asarray(real_pos, np.int64)[order]
+        self._dev: dict[tuple, object] = {}
+        self._plain: dict[int, GF2Constants] = {}
+
+    def _support_mask(self, g: int) -> np.ndarray:
+        blocks = self.bitmatrices[g].reshape(
+            self.bitmatrices.shape[1], self.cmax, 8)
+        return blocks.any(axis=(0, 2))
+
+    @classmethod
+    def from_reference(cls, mout: int, kin: int, groups, cols: np.ndarray,
+                       bms: np.ndarray,
+                       gather_rows: np.ndarray) -> "GroupedPlan":
+        """Build from a JAX plan's arrays (``groups``, ``cols``, the
+        lane-expanded int8 ``bms`` and ``gather_rows``).  Raises unless
+        each ``bms[g]`` is exactly the lane expansion of a GF(2)
+        bitmatrix, each group's nonzero columns are its first ``cols``
+        entries, and ``gather_rows`` is the groups' row map."""
+        plan = cls.__new__(cls)
+        plan.mout, plan.kin = int(mout), int(kin)
+        groups = [[int(r) for r in rows] for rows in groups]
+        cols = np.asarray(cols, np.int32)
+        bms = np.asarray(bms).astype(np.uint8)
+        G, cmax = cols.shape
+        grp = cls.GRP_ROWS
+        if len(groups) != G or bms.shape != (G, 32 * grp, 32 * cmax):
+            raise ValueError(f"bms {bms.shape} / cols {cols.shape} do not "
+                             f"match {len(groups)} groups")
+        if sorted(r for rows in groups for r in rows) != list(range(mout)):
+            raise ValueError("groups do not cover each row exactly once")
+        plan._set_profitability(groups, cmax)
+        bitmatrices = np.stack([
+            bms[g].reshape(grp, 4, 8, cmax, 4, 8)[:, 0, :, :, 0, :]
+            .reshape(8 * grp, 8 * cmax) for g in range(G)])
+        for g in range(G):
+            if not np.array_equal(
+                    bm.expand_bitmatrix_lanes(bitmatrices[g]), bms[g]):
+                raise ValueError(f"bms[{g}] is not a lane-expanded bitmatrix")
+        plan._set_tables(cols, bitmatrices)
+        for g in range(G):
+            n = int(plan.ncols[g])
+            if (not plan._support_mask(g)[:n].all()
+                    or np.any(cols[g, n:] != 0)):
+                raise ValueError(f"group {g}: support is not cols[:{n}]")
+        if not np.array_equal(plan.gather_rows,
+                              np.asarray(gather_rows, np.int64)):
+            raise ValueError("gather_rows is not the groups' row map")
+        return plan
+
+    @property
+    def fused(self) -> bool:
+        """Whether the fused kernel serves this plan (else the paired one):
+        the TPU applier's rule at pallas_kernels.py:564."""
+        return (len(self.groups) * 32 * self.GRP_ROWS * 32 * self.cmax
+                <= FUSED_MAX_BYTES)
+
+    def coefficients(self) -> np.ndarray:
+        """The (mout, kin) GF(2^8) matrix this plan applies, rebuilt from
+        its group bitmatrices (bit j of column c: coefficient * 2^j, so
+        the coefficient is the j=0 column)."""
+        coeff = np.zeros((self.mout, self.kin), np.uint8)
+        weights = (1 << np.arange(8, dtype=np.uint32))
+        for g, rows in enumerate(self.groups):
+            b = self.bitmatrices[g].reshape(self.GRP_ROWS, 8, self.cmax, 8)
+            sub = (b[:, :, :, 0].astype(np.uint32)
+                   * weights[None, :, None]).sum(axis=1)
+            n = int(self.ncols[g])
+            for s, r in enumerate(rows):
+                coeff[r, self.cols[g, :n]] = sub[s, :n]
+        return coeff
+
+    def _cached(self, what: str, device: torch.device, make):
+        key = (what, str(device))
+        hit = self._dev.get(key)
+        if hit is None:
+            hit = self._dev[key] = make()
+        return hit
+
+    def tensors(self, device: torch.device) -> tuple:
+        """(tables as int32, cols, ncols, slot_rows) on ``device``."""
+        return self._cached("tensors", device, lambda: tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (self.tables.view(np.int32), self.cols, self.ncols,
+                      self.slot_rows)))
+
+    def group_constants(self, g: int) -> GF2Constants:
+        """GF2Constants of group g's (4 x ncols[g]) sub-bitmatrix, for the
+        plain versions."""
+        hit = self._plain.get(g)
+        if hit is None:
+            n = int(self.ncols[g])
+            hit = GF2Constants(self.bitmatrices[g][:, :8 * n])
+            self._plain[g] = hit
+        return hit
+
+    def gather_index(self, device: torch.device) -> torch.Tensor:
+        """Flat (G * cmax,) row index of the paired kernel's gathered
+        input: ``data.index_select(row_dim, index)`` is the JAX applier's
+        ``words[plan.cols]`` (pallas_kernels.py:577)."""
+        return self._cached("gather", device, lambda: torch.from_numpy(
+            self.cols.reshape(-1).astype(np.int64)).to(device))
+
+
+def _grouped_plain(plan: GroupedPlan, data: torch.Tensor,
+                   gathered: bool) -> torch.Tensor:
+    """Both grouped plain versions: for each group, the dense plain
+    version of its (4 x ncols) sub-bitmatrix over its support rows
+    (``cols[g]``, or rows g*cmax.. of a gathered input), each real slot
+    written to its caller row."""
+    row_dim = data.ndim - 2
+    shape = list(data.shape)
+    shape[row_dim] = plan.mout
+    out = torch.zeros(shape, dtype=data.dtype, device=data.device)
+    for g in range(len(plan.groups)):
+        n = int(plan.ncols[g])
+        if n == 0:
+            continue
+        rows = (np.arange(g * plan.cmax, g * plan.cmax + n) if gathered
+                else plan.cols[g, :n])
+        sel = data.index_select(
+            row_dim, torch.from_numpy(rows.astype(np.int64)).to(data.device))
+        consts = plan.group_constants(g)
+        if data.dtype == torch.int32:
+            res = gf2_apply_words_plain(consts.plain_bm32(data.device), sel)
+        else:
+            res = gf2_apply_u8_plain(consts.plain_bm(data.device), sel)
+        for s, r in enumerate(plan.slot_rows[g]):
+            if r >= 0:
+                out.select(row_dim, int(r)).copy_(res.select(row_dim, s))
+    return out
+
+
+def gf2_apply_grouped_plain(plan: GroupedPlan,
+                            data: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_grouped: (kin, N4) int32, (kin, N) or
+    (B, kin, C) uint8 -> the same layout with mout rows."""
+    return _grouped_plain(plan, data, gathered=False)
+
+
+def gf2_apply_grouped_paired_plain(plan: GroupedPlan,
+                                   gathered: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_grouped_paired: the gathered
+    (G*cmax, N4) int32, (G*cmax, N) or (B, G*cmax, C) uint8 input ->
+    the same layout with mout rows."""
+    return _grouped_plain(plan, gathered, gathered=True)
+
+
+def _grouped_lib():
+    from ceph_tpu_torch.common import cuda_build
+
+    lib = cuda_build.load(GROUPED_SOURCE)
+    if not getattr(lib, "_gf2_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        words = [i, i, p, p, ll, ll, ll, p]
+        u8 = [i, i, p, p, ll, ll, ll, ll, ll, ll, p]
+        lib.gf2_apply_grouped_words.argtypes = [p, p, p, p] + words
+        lib.gf2_apply_grouped_u8.argtypes = [p, p, p, p] + u8
+        lib.gf2_apply_grouped_paired_words.argtypes = [p, p, p] + words
+        lib.gf2_apply_grouped_paired_u8.argtypes = [p, p, p] + u8
+        for fn in (lib.gf2_apply_grouped_words, lib.gf2_apply_grouped_u8,
+                   lib.gf2_apply_grouped_paired_words,
+                   lib.gf2_apply_grouped_paired_u8):
+            fn.restype = ctypes.c_int
+        lib._gf2_typed = True
+    return lib
+
+
+def _grouped_launch(name: str, plan: GroupedPlan, data: torch.Tensor,
+                    out: torch.Tensor | None, gathered: bool) -> torch.Tensor:
+    words = data.dtype == torch.int32 and data.ndim == 2
+    if not (words or (data.dtype == torch.uint8 and data.ndim in (2, 3))):
+        raise TypeError(f"{name}: expected 2-D int32 words or 2-D/3-D uint8, "
+                        f"got {data.dtype} {tuple(data.shape)}")
+    row_dim = data.ndim - 2
+    G = len(plan.groups)
+    rows = G * plan.cmax if gathered else plan.kin
+    if data.shape[row_dim] != rows:
+        raise ValueError(f"{name}: expected {rows} rows, got "
+                         f"{data.shape[row_dim]}")
+    shape = list(data.shape)
+    shape[row_dim] = plan.mout
+    shape = tuple(shape)
+    if data.device.type == "cpu":
+        res = _grouped_plain(plan, data, gathered)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    _require_cuda(name, data)
+    if data.stride(-1) != 1:
+        raise ValueError(f"{name}: columns must be contiguous")
+    if out is None:
+        out = torch.empty(shape, dtype=data.dtype, device=data.device)
+    if (tuple(out.shape) != shape or out.dtype != data.dtype
+            or out.device != data.device or out.stride(-1) != 1):
+        raise ValueError(f"{name}: bad output tensor")
+    table, cols, ncols, slot_rows = plan.tensors(data.device)
+    head = ([table.data_ptr()] + ([] if gathered else [cols.data_ptr()])
+            + [ncols.data_ptr(), slot_rows.data_ptr(), G, plan.cmax,
+               data.data_ptr(), out.data_ptr()])
+    lib = _grouped_lib()
+    kind = "paired_" if gathered else ""
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        if words:
+            rc = getattr(lib, f"gf2_apply_grouped_{kind}words")(
+                *head, data.shape[1], data.stride(0), out.stride(0), stream)
+        elif data.ndim == 3:
+            rc = getattr(lib, f"gf2_apply_grouped_{kind}u8")(
+                *head, data.shape[2], data.shape[0], data.stride(1),
+                data.stride(0), out.stride(1), out.stride(0), stream)
+        else:
+            rc = getattr(lib, f"gf2_apply_grouped_{kind}u8")(
+                *head, data.shape[1], 1, data.stride(0), 0, out.stride(0), 0,
+                stream)
+    _check_rc(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
+def gf2_apply_grouped(plan: GroupedPlan, data: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """B3: (kin, N4) int32 words, (kin, N) uint8 streams or a (B, kin, C)
+    uint8 batch -> the same layout with mout rows, every group in one
+    launch.  Rows and the stripe axis may be strided; columns (bytes or
+    words within a row) must be contiguous.  The plain version for a CPU
+    tensor."""
+    return _grouped_launch("gf2_apply_grouped", plan, data, out,
+                           gathered=False)
+
+
+def gf2_apply_grouped_paired(plan: GroupedPlan, gathered: torch.Tensor,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
+    """B4: the gathered input (rows g*cmax + c = input row cols[g][c]), as
+    (G*cmax, N4) int32, (G*cmax, N) uint8 or (B, G*cmax, C) uint8 -> the
+    same layout with mout rows.  The plain version for a CPU tensor."""
+    return _grouped_launch("gf2_apply_grouped_paired", plan, gathered, out,
+                           gathered=True)
+
+
+class GroupedApply:
+    """Sparse-grouped counterpart of ShardApply for repair operators.
+
+    Counterpart of ceph_tpu.ec.pallas_kernels.PallasGroupedApply
+    (:529-595): the same entries (``apply_words`` for (kin, N4) int32,
+    ``__call__`` for (kin, N) or (B, kin, C) uint8) and the same route:
+    the fused kernel when the plan is ``fused``, else the paired kernel
+    over the input gathered by ``plan.cols`` (a PyTorch ``index_select``,
+    as the JAX package gathers outside its kernel).  Unlike the JAX
+    applier it takes any length and a strided batch as it lies.
+    """
+
+    def __init__(self, coeff: np.ndarray | None = None, *,
+                 plan: GroupedPlan | None = None):
+        self.plan = plan or GroupedPlan(coeff)
+        if not self.plan.profitable:
+            raise ValueError("matrix too dense for the grouped kernel")
+        self.mout, self.kin = self.plan.mout, self.plan.kin
+
+    def _apply(self, data: torch.Tensor,
+               out: torch.Tensor | None) -> torch.Tensor:
+        if self.plan.fused:
+            return gf2_apply_grouped(self.plan, data, out)
+        gathered = data.index_select(data.ndim - 2,
+                                     self.plan.gather_index(data.device))
+        return gf2_apply_grouped_paired(self.plan, gathered, out)
+
+    def apply_words(self, words: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+        """(kin, N4) int32 -> (mout, N4) int32, any N4."""
+        if words.dtype != torch.int32 or words.ndim != 2:
+            raise TypeError(f"expected 2-D int32 words, got {words.dtype} "
+                            f"{tuple(words.shape)}")
+        return self._apply(words, out)
+
+    def __call__(self, data: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+        """(kin, N) or (B, kin, C) uint8 -> same-layout output rows."""
+        if data.dtype != torch.uint8:
+            raise TypeError(f"expected uint8, got {data.dtype}")
+        return self._apply(data, out)

@@ -9,10 +9,13 @@ JAX engine sends to its XLA einsum (lengths that are not a multiple of 4,
 packet layouts): the byte kernel takes any length.  On a CPU tensor the
 same entries run the kernels' plain PyTorch versions.
 
-The JAX engine's grouped-repair dispatch (``PallasGroupedApply`` for
-sparse CLAY/LRC repair matrices) is not ported yet; for jax_rs matrices
-it never fires, and the dense kernel computes the same bytes for any
-matrix.
+Sparse repair operators (CLAY regenerating repair) go to the grouped
+kernels instead: ``apply`` and ``apply_words`` ask ``grouped_applier``
+first, as the JAX engine asks ``_grouped_applier`` (engine.py:220-232,
+:243-248, :267-272), and the same matrices are grouped on both sides
+(``cuda_kernels.GroupedPlan`` is the JAX plan's copy).  Unlike the JAX
+engine, which groups only lengths that are a multiple of 4 on a TPU, the
+port groups every shape on every device.
 
 ``bitplane_apply`` and ``packet_bitmatrix_apply`` are the plain PyTorch
 versions of the JAX engine's einsum formulations, kept as oracles.
@@ -137,6 +140,11 @@ def pad_batch_to(arr, target: int):
     return torch.cat([arr, pad], dim=0)
 
 
+def _key(coeff: np.ndarray) -> bytes:
+    """Cache key of a coefficient matrix: its bytes and shape."""
+    return coeff.tobytes() + repr(coeff.shape).encode()
+
+
 class BitplaneEngine:
     """Per-matrix applier cache and the region-op entries, on one device.
 
@@ -151,6 +159,9 @@ class BitplaneEngine:
         self.device = resolve_device(device)
         self._appliers: FIFOCache[ck.ShardApply] = FIFOCache(
             max_cached_matrices)
+        # GroupedApply, or _NOT_GROUPABLE for a matrix whose plan does not
+        # pay (cached either way, as the JAX engine's _grouped_cache)
+        self._grouped: FIFOCache = FIFOCache(max_cached_matrices)
 
     def tensor(self, data, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
         """``data`` as a tensor on this engine's device."""
@@ -164,12 +175,14 @@ class BitplaneEngine:
             return data
         np_dtype = np.uint8 if dtype == torch.uint8 else np.int32
         arr = np.ascontiguousarray(np.asarray(data, np_dtype))
+        if not arr.flags.writeable:      # e.g. np.frombuffer over bytes
+            arr = arr.copy()
         return torch.from_numpy(arr).to(self.device)
 
     def applier(self, coeff: np.ndarray) -> ck.ShardApply:
         """The cached ShardApply of a GF(2^8) coefficient matrix."""
         coeff = np.asarray(coeff, np.uint8)
-        key = coeff.tobytes() + repr(coeff.shape).encode()
+        key = _key(coeff)
         hit = self._appliers.get(key)
         if hit is None:
             hit = ck.ShardApply(coeff)
@@ -184,18 +197,47 @@ class BitplaneEngine:
         if (applier.mout, applier.kin) != coeff.shape:
             raise ValueError(f"applier is {applier.mout}x{applier.kin}, "
                              f"matrix is {coeff.shape}")
-        self._appliers.put(coeff.tobytes() + repr(coeff.shape).encode(),
-                           applier)
+        self._appliers.put(_key(coeff), applier)
+
+    def grouped_applier(self, coeff: np.ndarray) -> ck.GroupedApply | None:
+        """The cached GroupedApply of a sparse matrix, or None when its
+        GroupedPlan is not profitable (the matrix then takes the dense
+        kernel)."""
+        coeff = np.asarray(coeff, np.uint8)
+        key = _key(coeff)
+        hit = self._grouped.get(key)
+        if hit is None:
+            plan = ck.GroupedPlan(coeff)
+            hit = ck.GroupedApply(plan=plan) if plan.profitable \
+                else _NOT_GROUPABLE
+            self._grouped.put(key, hit)
+        return None if hit is _NOT_GROUPABLE else hit
+
+    def install_grouped(self, coeff: np.ndarray,
+                        applier: ck.GroupedApply) -> None:
+        """Serve ``coeff`` with a given grouped applier (one built from a
+        carried plan, see ec.state)."""
+        coeff = np.asarray(coeff, np.uint8)
+        if (applier.mout, applier.kin) != coeff.shape:
+            raise ValueError(f"applier is {applier.mout}x{applier.kin}, "
+                             f"matrix is {coeff.shape}")
+        self._grouped.put(_key(coeff), applier)
+
+    def _applier_for(self, coeff: np.ndarray):
+        coeff = np.asarray(coeff, np.uint8)
+        grouped = self.grouped_applier(coeff)
+        return grouped if grouped is not None else self.applier(coeff)
 
     def apply(self, coeff: np.ndarray, data, out=None) -> torch.Tensor:
         """Apply a GF(2^8) coefficient matrix (m, k) to data (B, k, C) or
-        (k, N) uint8, any C or N."""
-        return self.applier(coeff)(self.tensor(data), out)
+        (k, N) uint8, any C or N: the grouped kernels for a sparse repair
+        operator, the dense kernels for any other matrix."""
+        return self._applier_for(coeff)(self.tensor(data), out)
 
     def apply_words(self, coeff: np.ndarray, words) -> torch.Tensor:
         """Word-typed hot path: (k, N4) int32 lanes -> (m, N4) int32.  Use
         cuda_kernels.bytes_to_words/words_to_bytes at the boundaries."""
-        return self.applier(coeff).apply_words(
+        return self._applier_for(coeff).apply_words(
             self.tensor(words, torch.int32))
 
     def apply_packets(self, BM: np.ndarray, data, w: int) -> torch.Tensor:
@@ -240,6 +282,8 @@ class BitplaneEngine:
         self.apply(generator[k:], data, out=out[..., k:, :])
         return out
 
+
+_NOT_GROUPABLE = object()
 
 _ENGINES: dict[torch.device, BitplaneEngine] = {}
 

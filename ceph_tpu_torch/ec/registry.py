@@ -28,7 +28,7 @@ ENTRY_POINT = "__erasure_code_init__"
 DEFAULT_PLUGIN_PACKAGE = "ceph_tpu_torch.ec.plugins"
 
 # Built-in plugin set, preloaded like osd_erasure_code_plugins defaults.
-BUILTIN_PLUGINS = ("jax_rs", "xor")
+BUILTIN_PLUGINS = ("jax_rs", "xor", "lrc", "shec", "clay")
 
 
 class ErasureCodePlugin:

@@ -11,18 +11,29 @@ and, phase by phase, raising on any failure:
    at once) and prints the build seconds and ptxas's register report;
 2. prints the card (torch's name, nvidia-smi's name and power limit);
 3. holds each kernel against its plain PyTorch version on the card, exact
-   (``torch.equal``), at the headline k=8 m=4 encode, a 4-erasure decode
-   matrix, a ragged length and the w=16 / w=32 packet matrices;
-4. runs the main path with every launch count set to 0: the corpus check
-   (every jax_rs / xor archive bit-identical, under both encode variants),
-   the exhaustive k=8 m=4 erasure sweep (793 patterns), a 64 MiB object
-   split into 16384 stripes, encoded, 4 shards dropped, decoded and merged
-   back bit-identical, and the headline encode / 4-erasure decode through
-   the word entries; then reads the counts, and fails if a kernel was not
-   launched;
-5. times each kernel and its plain version at the headline geometry
-   (16384 stripes x 4 KiB, k=8 m=4, 64 MiB of data per launch) with CUDA
-   events, beside the HBM / int8 bound;
+   (``torch.equal``): the dense kernels at the headline k=8 m=4 encode, a
+   4-erasure decode matrix, a ragged length and the w=16 / w=32 packet
+   matrices; the grouped kernels on the CLAY k=8 m=4 d=11 repair operator
+   at the headline repair (words and the (B, 176, sc) batch), the CLAY
+   k=16 m=4 d=19 operator, a random sparse plan with short groups and the
+   pair-padding group, and a ragged length;
+4. runs the main paths with every launch count set to 0: the corpus check
+   (all 16 archives bit-identical, under both encode variants), the
+   exhaustive k=8 m=4 erasure sweep (793 patterns), a 64 MiB object split
+   into 16384 stripes, encoded, 4 shards dropped, decoded and merged back
+   bit-identical, the headline encode / 4-erasure decode through the word
+   entries; then CLAY k=8 m=4 d=11: encode, all 12 single-chunk repairs
+   through ``batched_clay_plane_repair_device`` (each one grouped-kernel
+   launch), a 4-erasure full decode; the CLAY k=16 m=4 d=19 repair of
+   chunk 16 (the paired kernel); an LRC k=8 l=3 m=4 and a SHEC k=4 m=3 c=2
+   round trip with one lost chunk.  It reads the counts after each path
+   and fails if a kernel was not launched;
+5. times each kernel and its plain version with CUDA events beside its
+   bound: the dense kernels at the jax_rs headline (16384 stripes x 4 KiB,
+   k=8 m=4, 64 MiB of data per launch); the grouped kernel at the CLAY
+   headline repair (512 stripes x 64 KiB chunks), beside the dense byte
+   kernel on the same operator, and the paired kernel at the k=16 repair
+   (1024 stripes x 16 KiB chunks); and the entries around them;
 6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +61,16 @@ HEADLINE_LOST = [0, 1, 2, 3]  # the JAX benchmark's --erasures 4 choice
 OBJECT_LOST = [1, 4, 8, 10]   # two data shards, one parity, one data
 SEED = 20261016
 
+# CLAY headline repair: k=8 m=4 d=11, one OSD repair batch of 64 objects of
+# 4 MiB = 512 stripes of 64 KiB chunks (sc = 1024, the JAX bench's cfg4).
+CLAY = {"k": "8", "m": "4", "d": "11"}
+CLAY_STRIPES, CLAY_SC = 512, 1024
+CLAY_LOST = 3
+CLAY_DECODE_LOST = [0, 5, 9, 11]
+# The paired-kernel repair: k=16 m=4 d=19, 1024 stripes of 16 KiB chunks.
+CLAY16 = {"k": "16", "m": "4", "d": "19"}
+CLAY16_STRIPES, CLAY16_SC, CLAY16_LOST = 1024, 16, 16
+
 
 def log(*args) -> None:
     print(*args, flush=True)
@@ -76,7 +97,18 @@ def main() -> int:
         from ceph_tpu_torch.ec import cuda_kernels as ck
         from ceph_tpu_torch.ec.bitmatrix import gf_matrix_to_bitmatrix
         from ceph_tpu_torch.ec.plugins.jax_rs import ErasureCodeJaxRS
+        from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+        from ceph_tpu_torch.ec.repair_operator import (
+            clay_repair_operator,
+            lrc_repair_operator,
+        )
         from ceph_tpu_torch.osd.ec_util import StripeInfo
+        from ceph_tpu_torch.parallel.clay_sharding import (
+            batched_clay_plane_repair_device,
+        )
+        from ceph_tpu_torch.parallel.lrc_sharding import (
+            batched_lrc_group_repair,
+        )
     except ImportError as e:
         print(f"chip_smoke: the ceph_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -89,6 +121,30 @@ def main() -> int:
     def rand_u8(shape) -> torch.Tensor:
         return torch.from_numpy(
             rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    walls = {}
+
+    def wall(label, fn):
+        """Host-clock seconds of fn(), synchronised both ends: for the
+        plane loops and probes, which are launch-bound host code."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+        return res
+
+    def max_err(got, ref) -> int:
+        return int((got.long() - ref.long()).abs().max())
+
+    def helper_planes(ec, chunks, helpers, planes, sc) -> torch.Tensor:
+        """(B, d*P, sc): each stripe's helpers' repair planes, stacked in
+        the order clay_repair_operator probed R against."""
+        b = chunks.shape[0]
+        return torch.stack([
+            chunks[:, h].reshape(b, ec.sub_chunk_no, sc)[:, planes]
+            for h in helpers], dim=1).reshape(b, len(helpers) * len(planes),
+                                              sc)
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -126,7 +182,7 @@ def main() -> int:
         ("w=16 packets", packet16, (80, 65_536), (4096, 80, 256)),
         ("w=32 packets", packet32, (128, 65_536), (1024, 128, 4096 // 32)),
     ]
-    errs = {"gf2_apply_words": 0, "gf2_apply_u8": 0}
+    errs = {name: 0 for name in ck.LAUNCHES}
     for label, coeff, wshape, bshape in cases:
         ap = ck.ShardApply(coeff)
         consts = ap.consts
@@ -134,12 +190,12 @@ def main() -> int:
         got = ck.gf2_apply_words(consts, words)
         ref = ck.gf2_apply_words_plain(consts.plain_bm32(dev), words)
         torch.cuda.synchronize()
-        err_w = int((got.long() - ref.long()).abs().max())
+        err_w = max_err(got, ref)
         data = rand_u8(bshape)
         got8 = ck.gf2_apply_u8(consts, data)
         ref8 = ck.gf2_apply_u8_plain(consts.plain_bm(dev), data)
         torch.cuda.synchronize()
-        err_b = int((got8.int() - ref8.int()).abs().max())
+        err_b = max_err(got8, ref8)
         ok = torch.equal(got, ref) and torch.equal(got8, ref8)
         log(f"[exact] {label}: coeff {coeff.shape} words {tuple(wshape)} "
             f"bytes {tuple(bshape)} -> equal={ok}")
@@ -148,33 +204,87 @@ def main() -> int:
         errs["gf2_apply_words"] = max(errs["gf2_apply_words"], err_w)
         errs["gf2_apply_u8"] = max(errs["gf2_apply_u8"], err_b)
 
-    # -- 4. the main path, counted -------------------------------------------
-    ck.reset_launch_counts()
+    # The grouped kernels, on the CLAY repair operators probed on the card.
+    reg = ErasureCodePluginRegistry()
+    clay = reg.factory("clay", CLAY, device=dev)
+    clay16 = reg.factory("clay", CLAY16, device=dev)
+    R8, helpers8, planes8 = wall(
+        "probe R, CLAY k=8 m=4 d=11", lambda: clay_repair_operator(
+            clay, CLAY_LOST))
+    R16, helpers16, planes16 = wall(
+        "probe R, CLAY k=16 m=4 d=19", lambda: clay_repair_operator(
+            clay16, CLAY16_LOST))
+    plan8, plan16 = ck.GroupedPlan(R8), ck.GroupedPlan(R16)
+    if not (plan8.profitable and plan8.fused and plan16.profitable
+            and not plan16.fused):
+        raise AssertionError("CLAY operators do not route as the JAX "
+                             "applier routes them (B3 / B4)")
+    sparse = np.zeros((30, 120), np.uint8)   # tests/test_pallas.py:193 case
+    srng = np.random.default_rng(2)
+    for i in range(30):
+        sparse[i, srng.choice(120, size=9, replace=False)] = \
+            srng.integers(1, 256, 9)
+    plan_sparse = ck.GroupedPlan(sparse)
+    kin8 = R8.shape[1]
+    n8 = CLAY_STRIPES * CLAY_SC
+    gcases = [
+        # (label, plan, input)
+        ("CLAY k=8 m=4 d=11 R, words", plan8,
+         ck.bytes_to_words(rand_u8((kin8, n8)))),
+        ("CLAY k=8 m=4 d=11 R, (B, 176, sc) batch", plan8,
+         rand_u8((CLAY_STRIPES, kin8, CLAY_SC))),
+        ("CLAY k=16 m=4 d=19 R, (B, 4864, sc) batch", plan16,
+         rand_u8((CLAY16_STRIPES, R16.shape[1], CLAY16_SC))),
+        ("random sparse 30x120, short groups + pair padding", plan_sparse,
+         rand_u8((120, 1 << 16))),
+        ("ragged length", plan8, rand_u8((kin8, 1_000_003))),
+    ]
+    for label, plan, data in gcases:
+        gathered = data.index_select(data.ndim - 2, plan.gather_index(dev))
+        for name, fn, plain, arg in (
+                ("gf2_apply_grouped", ck.gf2_apply_grouped,
+                 ck.gf2_apply_grouped_plain, data),
+                ("gf2_apply_grouped_paired", ck.gf2_apply_grouped_paired,
+                 ck.gf2_apply_grouped_paired_plain, gathered)):
+            got = fn(plan, arg)
+            ref = plain(plan, arg)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, ref)
+            log(f"[exact] {name} {label}: R {plan.mout}x{plan.kin}, "
+                f"G={len(plan.groups)} cmax={plan.cmax}, input "
+                f"{tuple(arg.shape)} {arg.dtype} -> equal={ok}")
+            if not ok:
+                raise AssertionError(f"{name} != plain version at {label}")
+            errs[name] = max(errs[name], max_err(got, ref))
+    del gcases, data, gathered, got, ref
+    for label, sec in walls.items():
+        log(f"[wall] {label}: {sec:.3f} s (host clock, launch-bound plane "
+            f"loops; outside every timed window)")
 
     def counts() -> dict:
         return dict(ck.LAUNCHES)
 
+    def delta(before) -> dict:
+        return {n: counts()[n] - before[n] for n in before}
+
+    # -- 4a. the jax_rs main path, counted -----------------------------------
+    ck.reset_launch_counts()
     for variant in ("", "auto"):
         ck.set_encode_variant(variant)
         before = counts()
         failures = corpus.check(device=dev)
-        ported, other = corpus.archives()
-        after = counts()
         log(f"[corpus] variant {ck.get_encode_variant()!r}: "
-            f"{len(ported)} archives, failures {failures}, launches "
-            f"{ {n: after[n] - before[n] for n in after} }")
-        if failures or len(ported) != 13:
+            f"{len(corpus.archives())} archives, failures {failures}, "
+            f"launches {delta(before)}")
+        if failures or len(corpus.archives()) != 16:
             raise AssertionError(f"corpus check failed: {failures}")
-    for path in other:
-        log(f"[corpus] {path.name}: not in this slice (plugin not ported)")
 
     ck.set_encode_variant("")
     before = counts()
     t0 = time.perf_counter()
     combos = benchmark.verify_all_erasures(ec)
     log(f"[sweep] k=8 m=4 reed_sol_van: {combos} erasure patterns decoded "
-        f"in {time.perf_counter() - t0:.1f}s, launches "
-        f"{ {n: counts()[n] - before[n] for n in before} }")
+        f"in {time.perf_counter() - t0:.1f}s, launches {delta(before)}")
     if combos != 793:
         raise AssertionError(f"expected 793 patterns, checked {combos}")
 
@@ -199,8 +309,8 @@ def main() -> int:
     if not parity_ok:
         raise AssertionError("rebuilt parity shard differs")
     log(f"[object] 64 MiB, {chunks.shape[0]} stripes x {K}+{M} x {CHUNK} B, "
-        f"lost {OBJECT_LOST}: bit-identical; launches "
-        f"{ {n: counts()[n] - before[n] for n in before} }")
+        f"lost {OBJECT_LOST}: bit-identical; launches {delta(before)}")
+    del obj, chunks, avail, rebuilt, stripes, back
 
     # The headline word entries once each (the benchmark's path).
     ck.set_encode_variant("")
@@ -213,100 +323,275 @@ def main() -> int:
     torch.cuda.synchronize()
     if not torch.equal(rec, full[HEADLINE_LOST]):
         raise AssertionError("headline words decode differs")
-    main_launches = counts()
-    log(f"[main path] launches {main_launches}")
-    for name, n in main_launches.items():
-        if n == 0:
+    rs_launches = counts()
+    log(f"[main path: jax_rs] launches {rs_launches}")
+    for name in ("gf2_apply_words", "gf2_apply_u8"):
+        if rs_launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+                                 f"jax_rs main path")
 
-    # -- 5. timing at the headline geometry ----------------------------------
+    # -- 4b. the repair main path (CLAY, LRC, SHEC), counted -----------------
+    ck.reset_launch_counts()
+    ck.set_encode_variant("auto")
+    C8 = clay.sub_chunk_no * CLAY_SC
+    data8 = rand_u8((CLAY_STRIPES, clay.k, C8))
+    chunks8 = wall(f"CLAY k=8 encode, {CLAY_STRIPES} x {C8 >> 10} KiB",
+                   lambda: clay.encode_chunks_device(data8))
+    if not torch.equal(chunks8[:, :clay.k], data8):
+        raise AssertionError("CLAY encode changed the data chunks")
+    grouped_only = {n: int(n == "gf2_apply_grouped") for n in ck.LAUNCHES}
+    for lost in range(clay.get_chunk_count()):
+        R, helpers, planes = wall(
+            "probe R, CLAY k=8 m=4 d=11 (x12)",
+            lambda: clay_repair_operator(clay, lost))
+        helper = helper_planes(clay, chunks8, helpers, planes, CLAY_SC)
+        before = counts()
+        got = batched_clay_plane_repair_device(clay, R, helper)
+        torch.cuda.synchronize()
+        if delta(before) != grouped_only:
+            raise AssertionError(f"CLAY repair of {lost} launched "
+                                 f"{delta(before)}, not one grouped kernel")
+        if not torch.equal(got, chunks8[:, lost]):
+            raise AssertionError(f"CLAY repair of chunk {lost} differs")
+    log(f"[clay] k=8 m=4 d=11, {CLAY_STRIPES} stripes x {C8} B: all "
+        f"{clay.get_chunk_count()} single-chunk repairs bit-identical, each "
+        f"one gf2_apply_grouped launch (helper planes {tuple(helper.shape)})")
+    del helper, got
+    avail = {i: chunks8[:, i] for i in range(clay.get_chunk_count())
+             if i not in CLAY_DECODE_LOST}
+    got = wall("CLAY k=8 full decode, 4 erasures",
+               lambda: clay.decode_chunks_device(avail, CLAY_DECODE_LOST))
+    if not torch.equal(got, chunks8[:, CLAY_DECODE_LOST]):
+        raise AssertionError("CLAY 4-erasure decode differs")
+    log(f"[clay] k=8 full decode of {CLAY_DECODE_LOST}: bit-identical")
+    del avail, got, data8
+
+    C16 = clay16.sub_chunk_no * CLAY16_SC
+    data16 = rand_u8((CLAY16_STRIPES, clay16.k, C16))
+    chunks16 = wall(f"CLAY k=16 encode, {CLAY16_STRIPES} x {C16 >> 10} KiB",
+                    lambda: clay16.encode_chunks_device(data16))
+    helper16 = helper_planes(clay16, chunks16, helpers16, planes16,
+                             CLAY16_SC)
+    before = counts()
+    got = batched_clay_plane_repair_device(clay16, R16, helper16)
+    torch.cuda.synchronize()
+    paired_only = {n: int(n == "gf2_apply_grouped_paired")
+                   for n in ck.LAUNCHES}
+    if delta(before) != paired_only:
+        raise AssertionError(f"CLAY k=16 repair launched {delta(before)}, "
+                             f"not one paired kernel")
+    if not torch.equal(got, chunks16[:, CLAY16_LOST]):
+        raise AssertionError("CLAY k=16 repair differs")
+    log(f"[clay] k=16 m=4 d=19, {CLAY16_STRIPES} stripes x {C16} B: repair "
+        f"of chunk {CLAY16_LOST} bit-identical, one gf2_apply_grouped_paired "
+        f"launch (helper planes {tuple(helper16.shape)})")
+    del data16, chunks16, got
+
+    for plugin, profile, lost in (("lrc", {"k": "8", "m": "4", "l": "3"}, 1),
+                                  ("shec", {"k": "4", "m": "3", "c": "2"}, 2)):
+        codec = reg.factory(plugin, profile, device=dev)
+        k = codec.get_data_chunk_count()
+        n = codec.get_chunk_count()
+        cdata = rand_u8((256, k, codec.get_chunk_size(k * 4096)))
+        enc = codec.encode_chunks_device(cdata)
+        avail = {i: enc[:, i] for i in range(n) if i != lost}
+        got = codec.decode_chunks_device(avail, [lost])[:, 0]
+        ok = torch.equal(got, enc[:, lost])
+        if plugin == "lrc":
+            coeffs, minimum = lrc_repair_operator(codec, lost)
+            local = batched_lrc_group_repair(
+                codec, coeffs, enc[:, minimum].cpu().numpy())
+            ok = ok and np.array_equal(local, enc[:, lost].cpu().numpy())
+        log(f"[{plugin}] {profile}: {n} chunks of {enc.shape[2]} B x "
+            f"{enc.shape[0]} stripes, chunk {lost} lost and rebuilt: "
+            f"bit-identical={ok}")
+        if not ok:
+            raise AssertionError(f"{plugin} round trip differs")
+    repair_launches = counts()
+    log(f"[main path: repair] launches {repair_launches}")
+    for name in ck.LAUNCHES:
+        if repair_launches[name] == 0 and name.startswith("gf2_apply_grouped"):
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"repair main path")
+    main_launches = dict(rs_launches)
+    main_launches.update({n: repair_launches[n] for n in
+                          ("gf2_apply_grouped", "gf2_apply_grouped_paired")})
+    ck.set_encode_variant("")
+
+    # -- 5. timing -----------------------------------------------------------
+    def bound(nbytes, ops):
+        """(seconds, "bytes" | "operations"): the larger of bytes over the
+        HBM rate and operations over the int8 tensor-core rate."""
+        b_s, o_s = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        return max(b_s, o_s), ("bytes" if b_s >= o_s else "operations")
+
+    def time_it(fn, iterations=20, runs=5):
+        return benchmark.cuda_seconds_per_call(fn, iterations, runs)
+
     data_bytes = K * n_bytes
     par_bytes = M * n_bytes
     bm = gf_matrix_to_bitmatrix(gen[K:])
     table_bytes = 4 * 8 * M * K
-    bound_bytes_s = (data_bytes + par_bytes + table_bytes) / HBM_BYTES_PER_S
     # the per-byte bit-plane contraction: (8m x 8k) 0/1 matrix x 8k bits per
     # byte column, on int8 tensor cores
     ops = 2 * bm.shape[0] * bm.shape[1] * n_bytes
-    bound_ops_s = ops / INT8_OPS_PER_S
-    bound_s = max(bound_bytes_s, bound_ops_s)
-    bound_by = "bytes" if bound_bytes_s >= bound_ops_s else "operations"
-    log(f"[bound] {data_bytes} B in + {par_bytes} B out + {table_bytes} B "
-        f"table at {HBM_BYTES_PER_S:.3g} B/s = {bound_bytes_s * 1e6:.2f} us; "
-        f"{ops} int8 ops at {INT8_OPS_PER_S:.4g}/s = "
-        f"{bound_ops_s * 1e6:.2f} us -> bound {bound_s * 1e6:.2f} us "
-        f"({bound_by})")
+    bound_s, bound_by = bound(data_bytes + par_bytes + table_bytes, ops)
+    log(f"[bound] jax_rs headline: {data_bytes} B in + {par_bytes} B out + "
+        f"{table_bytes} B table, {ops} int8 ops -> bound "
+        f"{bound_s * 1e6:.2f} us ({bound_by})")
+
+    def grouped_bound(plan, n, gathered):
+        """Bound of one grouped apply over n byte columns: the rows it
+        reads (the union of supports, or every gathered support row) and
+        writes, its constants, and the bit-plane contraction over the real
+        rows and support columns of each group."""
+        sup = [plan.cols[g, :plan.ncols[g]] for g in range(len(plan.groups))]
+        rows_read = (sum(len(c) for c in sup) if gathered
+                     else len(set(np.concatenate(sup).tolist())))
+        consts = sum(t.numel() * t.element_size()
+                     for t in plan.tensors(dev))
+        nbytes = (rows_read + plan.mout) * n + consts
+        gops = 2 * sum(8 * len(rows) * 8 * len(c)
+                       for rows, c in zip(plan.groups, sup)) * n
+        return (*bound(nbytes, gops), nbytes, gops)
 
     enc_ap = ck.ShardApply(gen[K:])
     dec_ap = ck.ShardApply(dec)
     stream = ck.words_to_bytes(words)        # (k, N) bytes view
     dec_words = full[surv]
     dec_stream = ck.words_to_bytes(dec_words)
-
-    def time_it(fn, iterations=20, runs=5):
-        return benchmark.cuda_seconds_per_call(fn, iterations, runs)
+    # the CLAY headline repair's inputs: R8's helper planes of one repair
+    # batch, as the bench's (176, N) shard layout and as the (B, 176, sc)
+    # batch batched_clay_plane_repair reads; the k=16 gathered input
+    helper8 = helper_planes(clay, chunks8, helpers8, planes8, CLAY_SC)
+    shard8 = helper8.permute(1, 0, 2).reshape(kin8, n8).contiguous()
+    shard8_words = ck.bytes_to_words(shard8)
+    gathered16 = helper16.index_select(1, plan16.gather_index(dev))
+    dense8 = ck.ShardApply(R8)
+    b3_s, b3_by, b3_bytes, b3_ops = grouped_bound(plan8, n8, False)
+    b4_s, b4_by, b4_bytes, b4_ops = grouped_bound(
+        plan16, CLAY16_STRIPES * CLAY16_SC, True)
+    log(f"[bound] CLAY k=8 repair, B3: {b3_bytes} B, {b3_ops} int8 ops -> "
+        f"{b3_s * 1e6:.2f} us ({b3_by}); CLAY k=16 repair, B4: {b4_bytes} B, "
+        f"{b4_ops} int8 ops -> {b4_s * 1e6:.2f} us ({b4_by})")
 
     rows = [
+        # (kernel, label, kernel call, plain call, bound seconds, by)
         ("gf2_apply_words", "encode words", lambda: enc_ap.apply_words(words),
          lambda: ck.gf2_apply_words_plain(enc_ap.consts.plain_bm32(dev),
-                                          words)),
+                                          words), bound_s, bound_by),
         ("gf2_apply_words", "decode 4 erasures words",
          lambda: dec_ap.apply_words(dec_words),
          lambda: ck.gf2_apply_words_plain(dec_ap.consts.plain_bm32(dev),
-                                          dec_words)),
+                                          dec_words), bound_s, bound_by),
         ("gf2_apply_u8", "encode bytes (auto)",
          lambda: ck.gf2_apply_u8(enc_ap.consts, stream),
-         lambda: ck.gf2_apply_u8_plain(enc_ap.consts.plain_bm(dev), stream)),
+         lambda: ck.gf2_apply_u8_plain(enc_ap.consts.plain_bm(dev), stream),
+         bound_s, bound_by),
         ("gf2_apply_u8", "decode 4 erasures bytes",
          lambda: ck.gf2_apply_u8(dec_ap.consts, dec_stream),
          lambda: ck.gf2_apply_u8_plain(dec_ap.consts.plain_bm(dev),
-                                       dec_stream)),
+                                       dec_stream), bound_s, bound_by),
+        ("gf2_apply_grouped", "CLAY k=8 repair, (176, N) bytes",
+         lambda: ck.gf2_apply_grouped(plan8, shard8),
+         lambda: ck.gf2_apply_grouped_plain(plan8, shard8), b3_s, b3_by),
+        ("gf2_apply_grouped", "CLAY k=8 repair, (176, N4) words",
+         lambda: ck.gf2_apply_grouped(plan8, shard8_words),
+         lambda: ck.gf2_apply_grouped_plain(plan8, shard8_words), b3_s,
+         b3_by),
+        ("gf2_apply_grouped", "CLAY k=8 repair, (B, 176, sc) batch",
+         lambda: ck.gf2_apply_grouped(plan8, helper8),
+         lambda: ck.gf2_apply_grouped_plain(plan8, helper8), b3_s, b3_by),
+        ("gf2_apply_grouped_paired", "CLAY k=16 repair, gathered batch",
+         lambda: ck.gf2_apply_grouped_paired(plan16, gathered16),
+         lambda: ck.gf2_apply_grouped_paired_plain(plan16, gathered16),
+         b4_s, b4_by),
     ]
     times = {}
-    for name, label, kern, plain in rows:
+    for name, label, kern, plain, b_s, b_by in rows:
         plain_s = time_it(plain, iterations=2, runs=3)
         kern_s = time_it(kern)
         kern_s2 = time_it(kern)
         plain_s2 = time_it(plain, iterations=2, runs=3)
         k_s, p_s = min(kern_s, kern_s2), min(plain_s, plain_s2)
-        times.setdefault(name, (k_s, p_s))
-        log(f"[time] {name} {label}: {k_s * 1e6:.2f} us "
-            f"({data_bytes / k_s / 2**30:.2f} GiB/s of data; runs "
-            f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), "
-            f"bound {bound_s * 1e6:.2f} us = {100 * bound_s / k_s:.1f}% of "
+        times.setdefault(name, (k_s, p_s, b_s, b_by))
+        log(f"[time] {name} {label}: {k_s * 1e6:.2f} us (runs "
+            f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
+            f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
             f"bound; plain {p_s * 1e3:.3f} ms; main-path launches "
             f"{main_launches[name]}")
-    # End to end through the codec entries (allocation included).
+    # Beside the grouped kernels: the dense kernels on the same CLAY
+    # operator (what grouping saves), the paired route's gather alone, and
+    # the fused kernel on the k=16 operator the paired route serves.
+    for label, fn, b_s in (
+            ("gf2_apply_u8 (dense) on CLAY k=8 R, (176, N) bytes",
+             lambda: ck.gf2_apply_u8(dense8.consts, shard8), b3_s),
+            ("gf2_apply_words (dense) on CLAY k=8 R, (176, N4) words",
+             lambda: ck.gf2_apply_words(dense8.consts, shard8_words), b3_s),
+            ("index_select gather of the paired route, CLAY k=16",
+             lambda: helper16.index_select(1, plan16.gather_index(dev)),
+             (helper16.numel() + gathered16.numel()) / HBM_BYTES_PER_S),
+            ("gf2_apply_grouped (fused) on CLAY k=16 R, (B, 4864, sc) batch",
+             lambda: ck.gf2_apply_grouped(plan16, helper16),
+             grouped_bound(plan16, CLAY16_STRIPES * CLAY16_SC, False)[0])):
+        s1, s2 = time_it(fn, iterations=5), time_it(fn, iterations=5)
+        log(f"[time] {label}: {min(s1, s2) * 1e6:.2f} us (runs "
+            f"{s1 * 1e6:.2f}, {s2 * 1e6:.2f} us), bound {b_s * 1e6:.2f} us "
+            f"= {100 * b_s / min(s1, s2):.1f}% of bound")
+    # End to end through the entries (allocation, gather included), each
+    # beside the bound of the function it computes.
     entries = [
-        ("", "encode_words_device", lambda: ec.encode_words_device(words)),
-        ("", "decode_words_device", lambda: ec.decode_words_device(
-            {a: full[a] for a in surv}, HEADLINE_LOST)),
-        ("auto", "encode_shards_device",
+        ("", "encode_words_device", data_bytes, bound_s,
+         lambda: ec.encode_words_device(words)),
+        ("", "decode_words_device", data_bytes, bound_s,
+         lambda: ec.decode_words_device({a: full[a] for a in surv},
+                                        HEADLINE_LOST)),
+        ("auto", "encode_shards_device", data_bytes, bound_s,
          lambda: ec.encode_shards_device(stream)),
+        ("auto", "batched_clay_plane_repair_device, CLAY k=8 (B3)",
+         CLAY_STRIPES * C8, b3_s,
+         lambda: batched_clay_plane_repair_device(clay, R8, helper8)),
+        ("auto", "batched_clay_plane_repair_device, CLAY k=16 (gather + B4)",
+         CLAY16_STRIPES * C16,
+         grouped_bound(plan16, CLAY16_STRIPES * CLAY16_SC, False)[0],
+         lambda: batched_clay_plane_repair_device(clay16, R16, helper16)),
     ]
-    for variant, label, fn in entries:
+    for variant, label, nbytes, b_s, fn in entries:
         ck.set_encode_variant(variant)
-        s = time_it(fn)
+        sec = time_it(fn)
         log(f"[time] entry {label} (variant {ck.get_encode_variant()!r}): "
-            f"{s * 1e6:.2f} us, {data_bytes / s / 2**30:.2f} GiB/s of data")
+            f"{sec * 1e6:.2f} us, {nbytes / sec / 2**30:.2f} GiB/s of "
+            f"{'recovered data' if 'clay' in label else 'data'}; bound "
+            f"{b_s * 1e6:.2f} us = {100 * b_s / sec:.1f}% of bound")
     ck.set_encode_variant("")
+    for label, sec in walls.items():
+        log(f"[wall] {label}: {sec:.3f} s")
 
     # -- 6. result lines ------------------------------------------------------
-    replaces = {"gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
-                "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199"}
+    replaces = {
+        "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
+        "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",
+        "gf2_apply_grouped": "ceph_tpu/ec/pallas_kernels.py:429",
+        "gf2_apply_grouped_paired": "ceph_tpu/ec/pallas_kernels.py:495",
+    }
+    sources = {
+        "gf2_apply_words": "ceph_tpu_torch/csrc/gf2_apply.cu",
+        "gf2_apply_u8": "ceph_tpu_torch/csrc/gf2_apply.cu",
+        "gf2_apply_grouped": "ceph_tpu_torch/csrc/gf2_grouped.cu",
+        "gf2_apply_grouped_paired": "ceph_tpu_torch/csrc/gf2_grouped.cu",
+    }
     kernels = []
-    for name in ("gf2_apply_words", "gf2_apply_u8"):
-        k_s, p_s = times[name]
+    for name in ck.LAUNCHES:
+        k_s, p_s, b_s, b_by = times[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "ceph_tpu_torch/csrc/gf2_apply.cu",
+            "source": sources[name],
             "replaces": replaces[name],
             "launches": main_launches[name],
             "exact": True,          # phase 3 raised on any difference
             "max_abs_err": errs[name],
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
-            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bound_ms": b_s * 1e3, "bound_by": b_by,
             "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))

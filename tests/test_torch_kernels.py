@@ -147,7 +147,9 @@ def test_plain_versions_count_no_launches():
     ap = ck.ShardApply(_rs84()[8:])
     ap(torch.from_numpy(_bytes((2, 8, 64), seed=1)))
     ap.apply_words(torch.from_numpy(_words((8, 16), seed=1)))
-    assert ck.LAUNCHES == {"gf2_apply_words": 0, "gf2_apply_u8": 0}
+    assert ck.LAUNCHES == {"gf2_apply_words": 0, "gf2_apply_u8": 0,
+                           "gf2_apply_grouped": 0,
+                           "gf2_apply_grouped_paired": 0}
 
 
 def test_encode_variant_selection(monkeypatch):
