@@ -14,6 +14,18 @@ and recovery of the jax_rs codecs:
   slot relayout; on Hopper a thread reads 16 contiguous bytes, so the port
   kernel takes the byte streams as they are, at any length.
 
+Three more (``csrc/gf2_variants.cu``) are the other encode variants, each
+for an unblocked contraction only (``variant_applies``):
+
+- ``gf2_apply_words_cmp``: B1's function, bits expanded by a per-byte
+  sign test.  Replaces ``_kernel_cmp_expand`` (:166-178, launched by
+  ``_pallas_apply_words_variant`` :244-264), ``enc_cmp_expand``.
+- ``gf2_apply_words_split2``: B1's function, two independent column
+  halves per thread.  Replaces ``_kernel_split2`` (:181-196, same
+  launch), ``enc_split2``.
+- ``gf2_apply_u8_split2``: B2's function in two halves.  Replaces
+  ``_kernel_u8_split2`` (:216-231, launched at :275), ``enc_u8_split2``.
+
 Two more (``csrc/gf2_grouped.cu``) carry the sparse repair operators
 (CLAY regenerating repair), row-grouped by ``GroupedPlan``:
 
@@ -30,10 +42,9 @@ by the TPU applier's rule.  Both write each output row at its caller
 position, so the TPU applier's ``out[gather_rows]`` reorder is not needed.
 
 Each kernel has a plain PyTorch version of the same function here
-(``gf2_apply_words_plain``, ``gf2_apply_u8_plain``,
-``gf2_apply_grouped_plain``, ``gf2_apply_grouped_paired_plain``).  A
-wrapper uses it only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.  Each launch adds one to ``LAUNCHES[name]``.
+(``<wrapper>_plain``).  A wrapper uses it only for a tensor on the CPU;
+for a CUDA tensor it launches the kernel or raises.  Each launch adds one
+to ``LAUNCHES[name]``.
 
 Bit order is LSB-first and lane order little-endian (byte 0 = bits 0..7 of
 the int32 word), matching ``bitcast_convert_type`` at pallas_kernels.py:
@@ -52,11 +63,14 @@ from ceph_tpu_torch.ec import bitmatrix as bm
 
 LANE_BYTES = 4      # bytes packed per int32 lane word
 KERNEL_SOURCE = "gf2_apply"
+VARIANT_SOURCE = "gf2_variants"
 GROUPED_SOURCE = "gf2_grouped"
 
 # Launch counts of the kernels, by wrapper name.  Only real launches count;
 # the plain versions never touch them.
 LAUNCHES = {"gf2_apply_words": 0, "gf2_apply_u8": 0,
+            "gf2_apply_words_cmp": 0, "gf2_apply_words_split2": 0,
+            "gf2_apply_u8_split2": 0,
             "gf2_apply_grouped": 0, "gf2_apply_grouped_paired": 0}
 
 
@@ -68,16 +82,26 @@ def reset_launch_counts() -> None:
 # -- encode-variant selection -------------------------------------------------
 #
 # The JAX package chooses among alternative formulations of the same
-# contraction (pallas_kernels.py:59-93).  The port has the production
-# formulation ("", words kernel behind apply_bytes) and enc_u8_expand (byte
-# kernel).  The split2 and cmp_expand variants are still to be ported.
-ENCODE_VARIANTS = ("", "enc_u8_expand")
-UNPORTED_VARIANTS = ("enc_cmp_expand", "enc_split2", "enc_u8_split2")
+# contraction (pallas_kernels.py:59-93); each has a kernel here.  A named
+# variant serves only an unblocked contraction, as in the JAX package
+# (:646-647, :690-691); blocked matrices keep the production kernel.
+ENCODE_VARIANTS = ("", "enc_cmp_expand", "enc_u8_expand", "enc_split2",
+                   "enc_u8_split2")
+# variant -> the wrapper that launches its kernel
+WORD_VARIANT_KERNELS = {"enc_cmp_expand": "gf2_apply_words_cmp",
+                        "enc_split2": "gf2_apply_words_split2"}
+U8_VARIANT_KERNELS = {"enc_u8_expand": "gf2_apply_u8",
+                      "enc_u8_split2": "gf2_apply_u8_split2"}
 _encode_variant = ""
+
+# The JAX package's largest unblocked (32 mout x 32 kin) int8 matrix
+# (pallas_kernels.py:50), kept as is so that both packages route, and group
+# (GroupedPlan's per-pair VMEM term), exactly the same matrices.
+_MAX_MATRIX_BYTES = 1 << 20
 
 
 def set_encode_variant(name: str) -> None:
-    """Select the formulation behind ``ShardApply.apply_bytes``.
+    """Select the formulation behind ``ShardApply``'s entries.
 
     "auto" resolves at set time to enc_u8_expand when a CUDA device is
     present, and to "" elsewhere — as the JAX package resolves it to
@@ -86,8 +110,6 @@ def set_encode_variant(name: str) -> None:
     global _encode_variant
     if name == "auto":
         name = "enc_u8_expand" if torch.cuda.is_available() else ""
-    if name in UNPORTED_VARIANTS:
-        raise NotImplementedError(f"encode variant {name!r} is not ported yet")
     if name not in ENCODE_VARIANTS:
         raise ValueError(
             f"unknown encode variant {name!r}; one of {ENCODE_VARIANTS}"
@@ -97,6 +119,34 @@ def set_encode_variant(name: str) -> None:
 
 def get_encode_variant() -> str:
     return _encode_variant
+
+
+def variant_applies(kin: int, mout: int) -> bool:
+    """Whether a named variant serves a (mout x kin) coefficient matrix:
+    its lane-expanded int8 bitmatrix fits one unblocked block, the JAX
+    package's ``_pick_kblk(kin, mout) == kin`` (pallas_kernels.py:144-153).
+    The variant kernels hold the whole column table in shared memory."""
+    return 32 * mout * 32 * kin <= _MAX_MATRIX_BYTES
+
+
+def route(kin: int, mout: int, n: int) -> str:
+    """The wrapper a ``ShardApply`` call launches, under the current
+    variant, for a (mout x kin) matrix over rows of ``n`` bytes
+    (``apply_words`` rows of N4 words are n = 4 * N4 bytes).
+
+    As ``PallasShardApply`` dispatches (pallas_kernels.py:643-671,
+    :684-703): a word variant launches its word kernel and a u8 variant
+    its byte kernel, from either entry through a zero-copy view, when
+    ``variant_applies``; everything else takes the production words
+    kernel.  A length that is not a multiple of 4, which the TPU refuses,
+    takes a byte kernel, since each byte column is independent."""
+    variant = _encode_variant
+    if variant and variant_applies(kin, mout):
+        if variant in U8_VARIANT_KERNELS:
+            return U8_VARIANT_KERNELS[variant]
+        if n % LANE_BYTES == 0:
+            return WORD_VARIANT_KERNELS[variant]
+    return "gf2_apply_words" if n % LANE_BYTES == 0 else "gf2_apply_u8"
 
 
 # -- lane views ---------------------------------------------------------------
@@ -196,25 +246,40 @@ def _exact_float32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def gf2_apply_words_plain(bm32: torch.Tensor,
-                          words: torch.Tensor) -> torch.Tensor:
-    """Plain version of gf2_apply_words, the TPU kernel's formulation:
-    (32m, 32k) float32 lane-expanded bitmatrix x (k, N4) int32 words ->
-    (m, N4) int32.  Each word expands to 32 bit planes (``>>`` on int32 is
-    arithmetic, but ``& 1`` keeps only the wanted bit), contracts in
-    float32, reduces mod 2 and packs back.  Packing sums in int64 and
-    folds values >= 2^31 to negative int32, so bit 31 survives."""
+def _shift_planes(w: torch.Tensor) -> torch.Tensor:
+    """(k, n) int32 -> (k, 32, n) 0/1 bit planes by shift and mask, the
+    production kernel's expansion (``>>`` on int32 is arithmetic, but
+    ``& 1`` keeps only the wanted bit)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
+    return (w[:, None, :] >> shifts[None, :, None]) & 1
+
+
+def _cmp_planes(w: torch.Tensor) -> torch.Tensor:
+    """(k, n) int32 -> (k, 32, n) bool bit planes by mask-AND and
+    compare-to-zero, the enc_cmp_expand expansion (pallas_kernels.py:173-
+    175).  The masks are built as uint32 bits, so 1 << 31 is exact."""
+    masks = torch.from_numpy(np.left_shift(
+        np.uint32(1), np.arange(32, dtype=np.uint32)).view(np.int32))
+    return (w[:, None, :] & masks.to(w.device)[None, :, None]) != 0
+
+
+def _apply_word_planes(bm32: torch.Tensor, words: torch.Tensor,
+                       planes) -> torch.Tensor:
+    """(32m, 32k) float32 lane-expanded bitmatrix x (k, N4) int32 words ->
+    (m, N4) int32: ``planes`` expands each word to 32 bit planes, which
+    contract in float32, reduce mod 2 and pack back.  Packing sums in
+    int64 and folds values >= 2^31 to negative int32, so bit 31 survives."""
     kin, n4 = words.shape
     mout = bm32.shape[0] // 32
     dev = words.device
-    shifts = torch.arange(32, dtype=torch.int32, device=dev)
-    weights = torch.ones(32, dtype=torch.int64, device=dev) << shifts.long()
+    weights = torch.ones(32, dtype=torch.int64, device=dev) \
+        << torch.arange(32, dtype=torch.int64, device=dev)
     out = torch.empty((mout, n4), dtype=torch.int32, device=dev)
     with _exact_float32_matmul():
         for s in range(0, n4, _PLAIN_COLS):
             w = words[:, s:s + _PLAIN_COLS]
             n = w.shape[1]
-            bits = ((w[:, None, :] >> shifts[None, :, None]) & 1)
+            bits = planes(w)
             acc = bm32 @ bits.reshape(kin * 32, n).to(torch.float32)
             pb = (acc.to(torch.int64) & 1).reshape(mout, 32, n)
             packed = (pb * weights[None, :, None]).sum(dim=1)
@@ -224,15 +289,43 @@ def gf2_apply_words_plain(bm32: torch.Tensor,
     return out
 
 
+def gf2_apply_words_plain(bm32: torch.Tensor,
+                          words: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_words, the TPU kernel's formulation:
+    (32m, 32k) float32 lane-expanded bitmatrix x (k, N4) int32 words ->
+    (m, N4) int32, bit planes by shift and mask."""
+    return _apply_word_planes(bm32, words, _shift_planes)
+
+
+def gf2_apply_words_cmp_plain(bm32: torch.Tensor,
+                              words: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_words_cmp, enc_cmp_expand's formulation:
+    bit planes by mask-AND and ``!= 0``, then the same contraction."""
+    return _apply_word_planes(bm32, words, _cmp_planes)
+
+
+def _halves(plain, mat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``plain`` over the two column halves of (k, n) data separately,
+    concatenated: the split2 variants' two independent half-tiles."""
+    h = (data.shape[-1] + 1) // 2
+    return torch.cat([plain(mat, data[:, :h]), plain(mat, data[:, h:])],
+                     dim=1)
+
+
+def gf2_apply_words_split2_plain(bm32: torch.Tensor,
+                                 words: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_words_split2, enc_split2's formulation:
+    the production expansion and contraction over each half of the
+    columns separately."""
+    return _halves(gf2_apply_words_plain, bm32, words)
+
+
 def gf2_apply_u8_plain(bmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """Plain version of gf2_apply_u8: (8m, 8k) float32 bitmatrix x (k, N)
     or (B, k, C) uint8 -> (m, N) / (B, m, C) uint8, by bit planes,
     float32 contraction (exact: sums <= 8k < 2^24), mod 2 and repack."""
     if data.ndim == 3:
-        b, kin, c = data.shape
-        flat = data.permute(1, 0, 2).reshape(kin, b * c)
-        out = gf2_apply_u8_plain(bmat, flat)
-        return out.reshape(-1, b, c).permute(1, 0, 2).contiguous()
+        return _per_stripe_columns(gf2_apply_u8_plain, bmat, data)
     kin, n = data.shape
     mout = bmat.shape[0] // 8
     dev = data.device
@@ -252,23 +345,53 @@ def gf2_apply_u8_plain(bmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gf2_apply_u8_split2_plain(bmat: torch.Tensor,
+                              data: torch.Tensor) -> torch.Tensor:
+    """Plain version of gf2_apply_u8_split2, enc_u8_split2's formulation:
+    byte planes over each half of the byte columns separately; a (B, k, C)
+    batch as its B*C columns, as the kernel reads it."""
+    if data.ndim == 3:
+        return _per_stripe_columns(gf2_apply_u8_split2_plain, bmat, data)
+    return _halves(gf2_apply_u8_plain, bmat, data)
+
+
+def _per_stripe_columns(plain, bmat: torch.Tensor,
+                        data: torch.Tensor) -> torch.Tensor:
+    """A (B, k, C) batch through a (k, N) plain version as its B*C byte
+    columns, and back to (B, m, C)."""
+    b, kin, c = data.shape
+    out = plain(bmat, data.permute(1, 0, 2).reshape(kin, b * c))
+    return out.reshape(-1, b, c).permute(1, 0, 2).contiguous()
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
-def _lib():
-    from ceph_tpu_torch.common import cuda_build
-
-    lib = cuda_build.load(KERNEL_SOURCE)
-    if not getattr(lib, "_gf2_typed", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.gf2_apply_words.argtypes = [p, p, p, i, i, ll, ll, ll, p]
-        lib.gf2_apply_words.restype = ctypes.c_int
-        lib.gf2_apply_u8.argtypes = [p, p, p, i, i, ll, ll, ll, ll, ll, ll, p]
-        lib.gf2_apply_u8.restype = ctypes.c_int
-        lib._gf2_typed = True
-    return lib
+_c_entries: dict[str, object] = {}
 
 
-def _check_rc(name: str, rc: int) -> None:
+def c_entry(source: str, name: str, argtypes: list):
+    """The typed C function ``name`` of csrc/<source>.cu's library (built
+    at first use)."""
+    fn = _c_entries.get(name)
+    if fn is None:
+        from ceph_tpu_torch.common import cuda_build
+
+        fn = getattr(cuda_build.load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _c_entries[name] = fn
+    return fn
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# table, in, out, kin, mout, n4, in_stride, out_stride, stream
+_WORD_ARGS = [_P, _P, _P, _I, _I, _LL, _LL, _LL, _P]
+# table, in, out, kin, mout, seg, nseg, in_row, in_seg, out_row, out_seg,
+# stream
+_BYTE_ARGS = [_P, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P]
+
+
+def check_rc(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
@@ -278,10 +401,19 @@ def _require_cuda(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def gf2_apply_words(consts: GF2Constants, words: torch.Tensor,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """(kin, N4) int32 -> (mout, N4) int32.  Launches the words kernel for
-    a CUDA tensor; the plain version for a CPU tensor."""
+def _require_unblocked(name: str, consts: GF2Constants) -> None:
+    if not variant_applies(consts.kin, consts.mout):
+        raise ValueError(f"{name}: a {consts.mout}x{consts.kin} matrix needs "
+                         f"a blocked contraction; this kernel takes "
+                         f"32*mout*32*kin <= {_MAX_MATRIX_BYTES} only")
+
+
+def _words_launch(name: str, source: str, plain, consts: GF2Constants,
+                  words: torch.Tensor,
+                  out: torch.Tensor | None) -> torch.Tensor:
+    """Shared body of the word-layout wrappers: (kin, N4) int32 ->
+    (mout, N4) int32 by the kernel ``name`` on a CUDA tensor, by ``plain``
+    on a CPU tensor."""
     if words.dtype != torch.int32 or words.ndim != 2:
         raise TypeError(f"expected 2-D int32 words, got {words.dtype} "
                         f"{tuple(words.shape)}")
@@ -289,39 +421,39 @@ def gf2_apply_words(consts: GF2Constants, words: torch.Tensor,
     if kin != consts.kin:
         raise ValueError(f"expected {consts.kin} rows, got {kin}")
     if words.device.type == "cpu":
-        res = gf2_apply_words_plain(consts.plain_bm32(words.device), words)
+        res = plain(consts.plain_bm32(words.device), words)
         if out is None:
             return res
         out.copy_(res)
         return out
-    _require_cuda("gf2_apply_words", words)
+    _require_cuda(name, words)
     if words.stride(1) != 1:
-        raise ValueError("gf2_apply_words: rows must be contiguous")
+        raise ValueError(f"{name}: rows must be contiguous")
     if out is None:
         out = torch.empty((consts.mout, n4), dtype=torch.int32,
                           device=words.device)
     if (out.shape != (consts.mout, n4) or out.dtype != torch.int32
             or out.device != words.device or out.stride(1) != 1):
-        raise ValueError("gf2_apply_words: bad output tensor")
+        raise ValueError(f"{name}: bad output tensor")
     table = consts.table(words.device)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = _lib().gf2_apply_words(
+        rc = c_entry(source, name, _WORD_ARGS)(
             table.data_ptr(), words.data_ptr(), out.data_ptr(),
             consts.kin, consts.mout, n4, words.stride(0), out.stride(0),
             stream)
-    _check_rc("gf2_apply_words", rc)
-    LAUNCHES["gf2_apply_words"] += 1
+    check_rc(name, rc)
+    LAUNCHES[name] += 1
     return out
 
 
-def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
-    """(kin, N) -> (mout, N), or (B, kin, C) -> (B, mout, C), uint8.
-    Launches the byte kernel for a CUDA tensor (any N; rows and the
-    stripe axis may be strided, bytes within a chunk contiguous); the
-    plain version for a CPU tensor.  ``out`` may be a strided view, such
-    as the parity rows of an encode output."""
+def _bytes_launch(name: str, source: str, plain, consts: GF2Constants,
+                  data: torch.Tensor,
+                  out: torch.Tensor | None) -> torch.Tensor:
+    """Shared body of the byte-layout wrappers: (kin, N) -> (mout, N), or
+    (B, kin, C) -> (B, mout, C), uint8, by the kernel ``name`` on a CUDA
+    tensor (any N; rows and the stripe axis may be strided, bytes within a
+    chunk contiguous), by ``plain`` on a CPU tensor."""
     if data.dtype != torch.uint8 or data.ndim not in (2, 3):
         raise TypeError(f"expected 2-D or 3-D uint8, got {data.dtype} "
                         f"{tuple(data.shape)}")
@@ -332,19 +464,19 @@ def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
     shape = ((data.shape[0], consts.mout, data.shape[2]) if batched
              else (consts.mout, data.shape[1]))
     if data.device.type == "cpu":
-        res = gf2_apply_u8_plain(consts.plain_bm(data.device), data)
+        res = plain(consts.plain_bm(data.device), data)
         if out is None:
             return res
         out.copy_(res)
         return out
-    _require_cuda("gf2_apply_u8", data)
+    _require_cuda(name, data)
     if data.stride(-1) != 1:
-        raise ValueError("gf2_apply_u8: bytes must be contiguous")
+        raise ValueError(f"{name}: bytes must be contiguous")
     if out is None:
         out = torch.empty(shape, dtype=torch.uint8, device=data.device)
     if (tuple(out.shape) != shape or out.dtype != torch.uint8
             or out.device != data.device or out.stride(-1) != 1):
-        raise ValueError("gf2_apply_u8: bad output tensor")
+        raise ValueError(f"{name}: bad output tensor")
     if batched:
         nseg, seg = data.shape[0], data.shape[2]
         in_row, in_seg = data.stride(1), data.stride(0)
@@ -356,21 +488,79 @@ def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
     table = consts.table(data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = _lib().gf2_apply_u8(
+        rc = c_entry(source, name, _BYTE_ARGS)(
             table.data_ptr(), data.data_ptr(), out.data_ptr(),
             consts.kin, consts.mout, seg, nseg, in_row, in_seg, out_row,
             out_seg, stream)
-    _check_rc("gf2_apply_u8", rc)
-    LAUNCHES["gf2_apply_u8"] += 1
+    check_rc(name, rc)
+    LAUNCHES[name] += 1
     return out
+
+
+def gf2_apply_words(consts: GF2Constants, words: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """B1: (kin, N4) int32 -> (mout, N4) int32, any matrix.  The plain
+    version for a CPU tensor."""
+    return _words_launch("gf2_apply_words", KERNEL_SOURCE,
+                         gf2_apply_words_plain, consts, words, out)
+
+
+def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """B2: (kin, N) -> (mout, N), or (B, kin, C) -> (B, mout, C), uint8,
+    any matrix and any N.  ``out`` may be a strided view, such as the
+    parity rows of an encode output.  The plain version for a CPU
+    tensor."""
+    return _bytes_launch("gf2_apply_u8", KERNEL_SOURCE, gf2_apply_u8_plain,
+                         consts, data, out)
+
+
+def gf2_apply_words_cmp(consts: GF2Constants, words: torch.Tensor,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """B5a (enc_cmp_expand): B1's function for an unblocked matrix, bits
+    expanded by a per-byte sign test.  The plain version for a CPU
+    tensor."""
+    _require_unblocked("gf2_apply_words_cmp", consts)
+    return _words_launch("gf2_apply_words_cmp", VARIANT_SOURCE,
+                         gf2_apply_words_cmp_plain, consts, words, out)
+
+
+def gf2_apply_words_split2(consts: GF2Constants, words: torch.Tensor,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """B5b (enc_split2): B1's function for an unblocked matrix, each thread
+    owning two independent column groups.  The plain version for a CPU
+    tensor."""
+    _require_unblocked("gf2_apply_words_split2", consts)
+    return _words_launch("gf2_apply_words_split2", VARIANT_SOURCE,
+                         gf2_apply_words_split2_plain, consts, words, out)
+
+
+def gf2_apply_u8_split2(consts: GF2Constants, data: torch.Tensor,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """B5c (enc_u8_split2): B2's function for an unblocked matrix in two
+    halves, the same layouts as gf2_apply_u8.  The plain version for a CPU
+    tensor."""
+    _require_unblocked("gf2_apply_u8_split2", consts)
+    return _bytes_launch("gf2_apply_u8_split2", VARIANT_SOURCE,
+                         gf2_apply_u8_split2_plain, consts, data, out)
+
+
+# wrapper name -> wrapper, for ``route``'s answer
+KERNELS = {"gf2_apply_words": gf2_apply_words,
+           "gf2_apply_u8": gf2_apply_u8,
+           "gf2_apply_words_cmp": gf2_apply_words_cmp,
+           "gf2_apply_words_split2": gf2_apply_words_split2,
+           "gf2_apply_u8_split2": gf2_apply_u8_split2}
+BYTE_KERNELS = ("gf2_apply_u8", "gf2_apply_u8_split2")
 
 
 # -- the applier --------------------------------------------------------------
 
-def _byte_kernel_for(n: int) -> bool:
-    """Whether byte rows of length ``n`` go to the byte kernel: under
-    enc_u8_expand, and for any length the word view cannot take."""
-    return _encode_variant == "enc_u8_expand" or n % LANE_BYTES != 0
+def _byte_view(words: torch.Tensor) -> torch.Tensor:
+    """(..., N4) int32 -> (..., 4*N4) uint8 without a copy where the words
+    of a row are contiguous (rows may be strided)."""
+    return words.view(torch.uint8) if words.stride(-1) == 1 \
+        else words_to_bytes(words)
 
 
 class ShardApply:
@@ -378,9 +568,10 @@ class ShardApply:
 
     Counterpart of ceph_tpu.ec.pallas_kernels.PallasShardApply: the same
     (k, N) / (B, k, C) layouts and apply_words / apply_bytes / __call__
-    entries, with the per-matrix constants cached in ``consts``.  Any
-    (kin, mout) is supported; the kernels block the contraction
-    themselves, so there is no VMEM-size limit to check.
+    entries, with the per-matrix constants cached in ``consts``, and the
+    same dispatch on the encode variant (``route``).  Any (kin, mout) is
+    supported; the production kernels block the contraction themselves,
+    so there is no VMEM-size limit to check.
     """
 
     def __init__(self, coeff: np.ndarray | None = None, *,
@@ -409,24 +600,36 @@ class ShardApply:
             raise ValueError("bm32 is not a lane-expanded bitmatrix")
         return cls(bitmatrix=bitmatrix)
 
+    def route(self, n: int) -> str:
+        """The wrapper a call over rows of ``n`` bytes launches."""
+        return route(self.kin, self.mout, n)
+
     def apply_words(self, words: torch.Tensor,
                     out: torch.Tensor | None = None) -> torch.Tensor:
-        """(k, N4) int32 -> (m, N4) int32, any N4."""
-        return gf2_apply_words(self.consts, words, out)
+        """(k, N4) int32 -> (m, N4) int32, any N4.  A u8 variant's kernel
+        reads the words as their bytes and writes the output's bytes."""
+        name = self.route(LANE_BYTES * words.shape[-1])
+        if name not in BYTE_KERNELS:
+            return KERNELS[name](self.consts, words, out)
+        if words.dtype != torch.int32 or words.ndim != 2:
+            raise TypeError(f"expected 2-D int32 words, got {words.dtype} "
+                            f"{tuple(words.shape)}")
+        res = KERNELS[name](self.consts, _byte_view(words),
+                            None if out is None else out.view(torch.uint8))
+        return res.view(torch.int32) if out is None else out
 
     def apply_bytes(self, data: torch.Tensor,
                     out: torch.Tensor | None = None) -> torch.Tensor:
         """(k, N) uint8 byte streams -> (m, N) uint8 parity streams.
 
-        Under enc_u8_expand (the CUDA default) the byte kernel reads the
-        streams as they are.  Under "" the streams are viewed as int32
-        words and go through the words kernel, as the JAX package's
-        production path does; a length that is not a multiple of 4 takes
-        the byte kernel either way, since each byte column is
-        independent."""
-        if _byte_kernel_for(data.shape[-1]):
-            return gf2_apply_u8(self.consts, data, out)
-        par = words_to_bytes(self.apply_words(bytes_to_words(data)))
+        A byte kernel (a u8 variant, or a length that is not a multiple of
+        4) reads the streams as they are; a words kernel reads them as
+        int32 words, as the JAX package's production path does."""
+        name = self.route(data.shape[-1])
+        if name in BYTE_KERNELS:
+            return KERNELS[name](self.consts, data, out)
+        par = words_to_bytes(KERNELS[name](self.consts,
+                                           bytes_to_words(data)))
         if out is None:
             return par
         out.copy_(par)
@@ -437,8 +640,9 @@ class ShardApply:
         """(k, N) or (B, k, C) uint8 -> same-layout parity bytes."""
         if data.ndim == 2:
             return self.apply_bytes(data, out)
-        if _byte_kernel_for(data.shape[-1]):
-            return gf2_apply_u8(self.consts, data, out)
+        name = self.route(data.shape[-1])
+        if name in BYTE_KERNELS:
+            return KERNELS[name](self.consts, data, out)
         batch, kin, C = data.shape
         flat = data.permute(1, 0, 2).reshape(kin, batch * C)
         par = self.apply_bytes(flat).reshape(self.mout, batch, C) \
@@ -451,9 +655,6 @@ class ShardApply:
 
 # -- sparse row-grouped repair operators --------------------------------------
 
-# The JAX plan's per-pair VMEM term (pallas_kernels.py:50, :399), kept as is
-# so that both packages group exactly the same matrices.
-_MAX_MATRIX_BYTES = 1 << 20
 # The TPU applier's route rule (pallas_kernels.py:564): the fused kernel when
 # the whole lane-expanded bitmatrix set is at most this large, else paired.
 FUSED_MAX_BYTES = 6 << 20
@@ -719,24 +920,12 @@ def gf2_apply_grouped_paired_plain(plan: GroupedPlan,
     return _grouped_plain(plan, gathered, gathered=True)
 
 
-def _grouped_lib():
-    from ceph_tpu_torch.common import cuda_build
-
-    lib = cuda_build.load(GROUPED_SOURCE)
-    if not getattr(lib, "_gf2_typed", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        words = [i, i, p, p, ll, ll, ll, p]
-        u8 = [i, i, p, p, ll, ll, ll, ll, ll, ll, p]
-        lib.gf2_apply_grouped_words.argtypes = [p, p, p, p] + words
-        lib.gf2_apply_grouped_u8.argtypes = [p, p, p, p] + u8
-        lib.gf2_apply_grouped_paired_words.argtypes = [p, p, p] + words
-        lib.gf2_apply_grouped_paired_u8.argtypes = [p, p, p] + u8
-        for fn in (lib.gf2_apply_grouped_words, lib.gf2_apply_grouped_u8,
-                   lib.gf2_apply_grouped_paired_words,
-                   lib.gf2_apply_grouped_paired_u8):
-            fn.restype = ctypes.c_int
-        lib._gf2_typed = True
-    return lib
+# head: table, [cols,] ncols, slot_rows, G, cmax, in, out
+_GROUPED_HEAD = [_P, _P, _P, _I, _I, _P, _P]
+# words: n4, in_stride, out_stride, stream
+_GROUPED_WORDS = [_LL, _LL, _LL, _P]
+# bytes: seg, nseg, in_row, in_seg, out_row, out_seg, stream
+_GROUPED_BYTES = [_LL, _LL, _LL, _LL, _LL, _LL, _P]
 
 
 def _grouped_launch(name: str, plan: GroupedPlan, data: torch.Tensor,
@@ -772,22 +961,25 @@ def _grouped_launch(name: str, plan: GroupedPlan, data: torch.Tensor,
     head = ([table.data_ptr()] + ([] if gathered else [cols.data_ptr()])
             + [ncols.data_ptr(), slot_rows.data_ptr(), G, plan.cmax,
                data.data_ptr(), out.data_ptr()])
-    lib = _grouped_lib()
     kind = "paired_" if gathered else ""
+    head_types = _GROUPED_HEAD[:1] + ([] if gathered else [_P]) \
+        + _GROUPED_HEAD[1:]
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         if words:
-            rc = getattr(lib, f"gf2_apply_grouped_{kind}words")(
+            rc = c_entry(GROUPED_SOURCE, f"gf2_apply_grouped_{kind}words",
+                         head_types + _GROUPED_WORDS)(
                 *head, data.shape[1], data.stride(0), out.stride(0), stream)
-        elif data.ndim == 3:
-            rc = getattr(lib, f"gf2_apply_grouped_{kind}u8")(
-                *head, data.shape[2], data.shape[0], data.stride(1),
-                data.stride(0), out.stride(1), out.stride(0), stream)
         else:
-            rc = getattr(lib, f"gf2_apply_grouped_{kind}u8")(
-                *head, data.shape[1], 1, data.stride(0), 0, out.stride(0), 0,
-                stream)
-    _check_rc(name, rc)
+            fn = c_entry(GROUPED_SOURCE, f"gf2_apply_grouped_{kind}u8",
+                         head_types + _GROUPED_BYTES)
+            if data.ndim == 3:
+                rc = fn(*head, data.shape[2], data.shape[0], data.stride(1),
+                        data.stride(0), out.stride(1), out.stride(0), stream)
+            else:
+                rc = fn(*head, data.shape[1], 1, data.stride(0), 0,
+                        out.stride(0), 0, stream)
+    check_rc(name, rc)
     LAUNCHES[name] += 1
     return out
 

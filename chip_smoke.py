@@ -8,12 +8,17 @@ CUDA toolkit.  It imports ``ceph_tpu_torch`` (never JAX, never ceph_tpu)
 and, phase by phase, raising on any failure:
 
 1. builds the CUDA kernels from ``ceph_tpu_torch/csrc`` (nvcc, all sources
-   at once) and prints the build seconds and ptxas's register report;
+   at once) and prints the build seconds, ptxas's register report and each
+   kernel's loops with their instruction mix (``testing.sass``);
 2. prints the card (torch's name, nvidia-smi's name and power limit);
 3. holds each kernel against its plain PyTorch version on the card, exact
    (``torch.equal``): the dense kernels at the headline k=8 m=4 encode, a
    4-erasure decode matrix, a ragged length and the w=16 / w=32 packet
-   matrices; the grouped kernels on the CLAY k=8 m=4 d=11 repair operator
+   matrices; the encode-variant kernels at the headline encode, the decode
+   matrix, a ragged length, a 32 x 32 matrix at the variants' gate
+   (mout*kin = 1024) and, for the byte one, the (B, k, C) batch; the lab's
+   copy kernel at the headline and a ragged length; the grouped kernels on
+   the CLAY k=8 m=4 d=11 repair operator
    at the headline repair (words and the (B, 176, sc) batch), the CLAY
    k=16 m=4 d=19 operator, a random sparse plan with short groups and the
    pair-padding group, and a ragged length;
@@ -26,14 +31,20 @@ and, phase by phase, raising on any failure:
    through ``batched_clay_plane_repair_device`` (each one grouped-kernel
    launch), a 4-erasure full decode; the CLAY k=16 m=4 d=19 repair of
    chunk 16 (the paired kernel); an LRC k=8 l=3 m=4 and a SHEC k=4 m=3 c=2
-   round trip with one lost chunk.  It reads the counts after each path
-   and fails if a kernel was not launched;
+   round trip with one lost chunk; then, under each of the five encode
+   variants, the corpus check and the 64 MiB object round trip, each
+   variant's kernel launched and a blocked matrix's apply launching the
+   production kernel B1.  It reads the counts after each path and fails if
+   a kernel was not launched;
 5. times each kernel and its plain version with CUDA events beside its
    bound: the dense kernels at the jax_rs headline (16384 stripes x 4 KiB,
    k=8 m=4, 64 MiB of data per launch); the grouped kernel at the CLAY
    headline repair (512 stripes x 64 KiB chunks), beside the dense byte
    kernel on the same operator, and the paired kernel at the k=16 repair
-   (1024 stripes x 16 KiB chunks); and the entries around them;
+   (1024 stripes x 16 KiB chunks); the variant kernels at the headline;
+   the copy kernel beside its bound and ``torch.bitwise_xor``; the entries
+   around them; then the perf lab (``ceph_tpu_torch.testing.perf_lab``),
+   every experiment once, its copy-kernel launches counted;
 6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -44,7 +55,6 @@ not beside it.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -70,18 +80,12 @@ CLAY_DECODE_LOST = [0, 5, 9, 11]
 # The paired-kernel repair: k=16 m=4 d=19, 1024 stripes of 16 KiB chunks.
 CLAY16 = {"k": "16", "m": "4", "d": "19"}
 CLAY16_STRIPES, CLAY16_SC, CLAY16_LOST = 1024, 16, 16
+# A (mout x kin) matrix at the encode variants' gate, mout*kin = 1024.
+GATE_EDGE = (32, 32)
 
 
 def log(*args) -> None:
     print(*args, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -109,6 +113,7 @@ def main() -> int:
         from ceph_tpu_torch.parallel.lrc_sharding import (
             batched_lrc_group_repair,
         )
+        from ceph_tpu_torch.testing import perf_lab, sass
     except ImportError as e:
         print(f"chip_smoke: the ceph_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -154,9 +159,11 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+        for line in sass.report(name):
+            log(f"[sass] {line}")
 
     # -- 2. the card -------------------------------------------------------
-    smi = nvidia_smi_line()
+    smi = perf_lab.nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[card] torch: {kind}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -203,6 +210,58 @@ def main() -> int:
             raise AssertionError(f"kernel != plain version at {label}")
         errs["gf2_apply_words"] = max(errs["gf2_apply_words"], err_w)
         errs["gf2_apply_u8"] = max(errs["gf2_apply_u8"], err_b)
+
+    # The encode-variant kernels (unblocked matrices only) and the lab's
+    # copy kernel.
+    edge = rng.integers(0, 256, GATE_EDGE, dtype=np.uint8)
+    vcases = [
+        # (label, coefficient matrix, words shape or None, bytes shape)
+        ("headline encode k=8 m=4", gen[K:], (K, n_bytes // 4), (K, n_bytes)),
+        ("decode 4 erasures", dec, (K, n_bytes // 4), (K, n_bytes)),
+        ("ragged length", gen[K:], (K, 1_000_003), (K, 1_000_003)),
+        ("gate edge 32x32", edge, (32, 1 << 18), (32, (1 << 20) + 5)),
+        ("(B, k, C) batch", gen[K:], None, (STRIPES, K, CHUNK)),
+        ("(B, k, C) batch, gate edge", edge, None, (2048, 32, 4096 + 3)),
+    ]
+    for label, coeff, wshape, bshape in vcases:
+        consts = ck.ShardApply(coeff).consts
+        if not ck.variant_applies(consts.kin, consts.mout):
+            raise AssertionError(f"{label} is not an unblocked matrix")
+        runs = []
+        if wshape is not None:
+            words = ck.bytes_to_words(
+                rand_u8(wshape[:-1] + (wshape[-1] * 4,)))
+            runs += [(name, fn, plain, consts.plain_bm32(dev), words)
+                     for name, fn, plain in (
+                         ("gf2_apply_words_cmp", ck.gf2_apply_words_cmp,
+                          ck.gf2_apply_words_cmp_plain),
+                         ("gf2_apply_words_split2", ck.gf2_apply_words_split2,
+                          ck.gf2_apply_words_split2_plain))]
+        runs.append(("gf2_apply_u8_split2", ck.gf2_apply_u8_split2,
+                     ck.gf2_apply_u8_split2_plain, consts.plain_bm(dev),
+                     rand_u8(bshape)))
+        for name, fn, plain, mat, arg in runs:
+            got = fn(consts, arg)
+            ref = plain(mat, arg)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, ref)
+            log(f"[exact] {name} {label}: coeff {coeff.shape} input "
+                f"{tuple(arg.shape)} {arg.dtype} -> equal={ok}")
+            if not ok:
+                raise AssertionError(f"{name} != plain version at {label}")
+            errs[name] = max(errs[name], max_err(got, ref))
+    errs["roof_copy_xor"] = 0
+    for label, shape in (("headline (8, 2^21) words", (K, n_bytes // 4)),
+                         ("ragged (8, 1000003) words", (K, 1_000_003))):
+        words = ck.bytes_to_words(rand_u8(shape[:-1] + (shape[-1] * 4,)))
+        got = perf_lab.roof_copy_xor(words)
+        ref = perf_lab.roof_copy_xor_plain(words)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, ref)
+        log(f"[exact] roof_copy_xor {label} -> equal={ok}")
+        if not ok:
+            raise AssertionError(f"roof_copy_xor != plain version at {label}")
+    del vcases, runs, words, got, ref
 
     # The grouped kernels, on the CLAY repair operators probed on the card.
     reg = ErasureCodePluginRegistry()
@@ -288,29 +347,35 @@ def main() -> int:
     if combos != 793:
         raise AssertionError(f"expected 793 patterns, checked {combos}")
 
+    def object_round_trip() -> None:
+        """A 64 MiB object split into stripes, encoded, OBJECT_LOST dropped,
+        decoded and merged back bit-identical; a parity shard rebuilt."""
+        before = counts()
+        info = StripeInfo(k=K, chunk_size=CHUNK)
+        obj = rand_u8((64 << 20,))
+        chunks = ec.encode_chunks_device(info.split_stripes(obj))
+        avail = {i: chunks[:, i] for i in range(K + M)
+                 if i not in OBJECT_LOST}
+        lost_data = [i for i in OBJECT_LOST if i < K]
+        rebuilt = ec.decode_chunks_device(avail, lost_data)
+        stripes = chunks[:, :K].clone()
+        for j, i in enumerate(lost_data):
+            stripes[:, i] = rebuilt[:, j]
+        back = info.merge_stripes(stripes)
+        torch.cuda.synchronize()
+        if not torch.equal(back, obj):
+            raise AssertionError("64 MiB object did not round-trip")
+        parity_ok = torch.equal(
+            ec.decode_chunks_device(avail, [10])[:, 0], chunks[:, 10])
+        if not parity_ok:
+            raise AssertionError("rebuilt parity shard differs")
+        log(f"[object] variant {ck.get_encode_variant()!r}: 64 MiB, "
+            f"{chunks.shape[0]} stripes x {K}+{M} x {CHUNK} B, lost "
+            f"{OBJECT_LOST}: bit-identical; launches {delta(before)}")
+
     # The object path under "auto", as an OSD selects it on the card.
     ck.set_encode_variant("auto")
-    before = counts()
-    info = StripeInfo(k=K, chunk_size=CHUNK)
-    obj = rand_u8((64 << 20,))
-    chunks = ec.encode_chunks_device(info.split_stripes(obj))
-    avail = {i: chunks[:, i] for i in range(K + M) if i not in OBJECT_LOST}
-    lost_data = [i for i in OBJECT_LOST if i < K]
-    rebuilt = ec.decode_chunks_device(avail, lost_data)
-    stripes = chunks[:, :K].clone()
-    for j, i in enumerate(lost_data):
-        stripes[:, i] = rebuilt[:, j]
-    back = info.merge_stripes(stripes)
-    torch.cuda.synchronize()
-    if not torch.equal(back, obj):
-        raise AssertionError("64 MiB object did not round-trip")
-    parity_ok = torch.equal(
-        ec.decode_chunks_device(avail, [10])[:, 0], chunks[:, 10])
-    if not parity_ok:
-        raise AssertionError("rebuilt parity shard differs")
-    log(f"[object] 64 MiB, {chunks.shape[0]} stripes x {K}+{M} x {CHUNK} B, "
-        f"lost {OBJECT_LOST}: bit-identical; launches {delta(before)}")
-    del obj, chunks, avail, rebuilt, stripes, back
+    object_round_trip()
 
     # The headline word entries once each (the benchmark's path).
     ck.set_encode_variant("")
@@ -416,6 +481,45 @@ def main() -> int:
     main_launches = dict(rs_launches)
     main_launches.update({n: repair_launches[n] for n in
                           ("gf2_apply_grouped", "gf2_apply_grouped_paired")})
+
+    # -- 4c. the jax_rs path under each encode variant, counted -------------
+    ck.reset_launch_counts()
+    blocked = ck.ShardApply(packet16)       # 48 x 80: needs a blocked apply
+    if ck.variant_applies(blocked.kin, blocked.mout):
+        raise AssertionError("the w=16 packet matrix should be blocked")
+    blocked_data = rand_u8((80, 1 << 16))
+    for variant in ck.ENCODE_VARIANTS:
+        ck.set_encode_variant(variant)
+        before = counts()
+        failures = corpus.check(device=dev)
+        if failures or len(corpus.archives()) != 16:
+            raise AssertionError(f"corpus check under {variant!r} failed: "
+                                 f"{failures}")
+        log(f"[corpus] variant {variant!r}: {len(corpus.archives())} "
+            f"archives bit-identical, launches {delta(before)}")
+        object_round_trip()
+        launched = delta(before)
+        kernel = ck.route(K, M, CHUNK)      # the variant's own kernel
+        if launched[kernel] == 0:
+            raise AssertionError(f"variant {variant!r} never launched "
+                                 f"{kernel}")
+        before = counts()
+        got = blocked.apply_bytes(blocked_data)
+        torch.cuda.synchronize()
+        step = delta(before)
+        if step != {n: int(n == "gf2_apply_words") for n in ck.LAUNCHES}:
+            raise AssertionError(f"a blocked matrix under {variant!r} "
+                                 f"launched {step}, not B1 once")
+        if not torch.equal(got, ck.gf2_apply_u8_plain(
+                blocked.consts.plain_bm(dev), blocked_data)):
+            raise AssertionError(f"blocked apply under {variant!r} differs")
+        log(f"[variant] {variant!r}: {kernel} launched {launched[kernel]} "
+            f"times; the blocked 48x80 packet matrix took gf2_apply_words")
+    variant_launches = counts()
+    log(f"[main path: variants] launches {variant_launches}")
+    for name in ("gf2_apply_words_cmp", "gf2_apply_words_split2",
+                 "gf2_apply_u8_split2"):
+        main_launches[name] = variant_launches[name]
     ck.set_encode_variant("")
 
     # -- 5. timing -----------------------------------------------------------
@@ -471,6 +575,10 @@ def main() -> int:
     b3_s, b3_by, b3_bytes, b3_ops = grouped_bound(plan8, n8, False)
     b4_s, b4_by, b4_bytes, b4_ops = grouped_bound(
         plan16, CLAY16_STRIPES * CLAY16_SC, True)
+    # L1 reads and writes the (8, 2^21) words once each, one op per word
+    copy_s = 2 * data_bytes / HBM_BYTES_PER_S
+    log(f"[bound] copy roof: {2 * data_bytes} B -> {copy_s * 1e6:.2f} us "
+        f"(bytes)")
     log(f"[bound] CLAY k=8 repair, B3: {b3_bytes} B, {b3_ops} int8 ops -> "
         f"{b3_s * 1e6:.2f} us ({b3_by}); CLAY k=16 repair, B4: {b4_bytes} B, "
         f"{b4_ops} int8 ops -> {b4_s * 1e6:.2f} us ({b4_by})")
@@ -492,6 +600,33 @@ def main() -> int:
          lambda: ck.gf2_apply_u8(dec_ap.consts, dec_stream),
          lambda: ck.gf2_apply_u8_plain(dec_ap.consts.plain_bm(dev),
                                        dec_stream), bound_s, bound_by),
+        ("gf2_apply_words_cmp", "encode words",
+         lambda: ck.gf2_apply_words_cmp(enc_ap.consts, words),
+         lambda: ck.gf2_apply_words_cmp_plain(enc_ap.consts.plain_bm32(dev),
+                                              words), bound_s, bound_by),
+        ("gf2_apply_words_cmp", "decode 4 erasures words",
+         lambda: ck.gf2_apply_words_cmp(dec_ap.consts, dec_words),
+         lambda: ck.gf2_apply_words_cmp_plain(dec_ap.consts.plain_bm32(dev),
+                                              dec_words), bound_s, bound_by),
+        ("gf2_apply_words_split2", "encode words",
+         lambda: ck.gf2_apply_words_split2(enc_ap.consts, words),
+         lambda: ck.gf2_apply_words_split2_plain(
+             enc_ap.consts.plain_bm32(dev), words), bound_s, bound_by),
+        ("gf2_apply_words_split2", "decode 4 erasures words",
+         lambda: ck.gf2_apply_words_split2(dec_ap.consts, dec_words),
+         lambda: ck.gf2_apply_words_split2_plain(
+             dec_ap.consts.plain_bm32(dev), dec_words), bound_s, bound_by),
+        ("gf2_apply_u8_split2", "encode bytes",
+         lambda: ck.gf2_apply_u8_split2(enc_ap.consts, stream),
+         lambda: ck.gf2_apply_u8_split2_plain(enc_ap.consts.plain_bm(dev),
+                                              stream), bound_s, bound_by),
+        ("gf2_apply_u8_split2", "decode 4 erasures bytes",
+         lambda: ck.gf2_apply_u8_split2(dec_ap.consts, dec_stream),
+         lambda: ck.gf2_apply_u8_split2_plain(dec_ap.consts.plain_bm(dev),
+                                              dec_stream), bound_s, bound_by),
+        ("roof_copy_xor", "headline (8, 2^21) words",
+         lambda: perf_lab.roof_copy_xor(words),
+         lambda: perf_lab.roof_copy_xor_plain(words), copy_s, "bytes"),
         ("gf2_apply_grouped", "CLAY k=8 repair, (176, N) bytes",
          lambda: ck.gf2_apply_grouped(plan8, shard8),
          lambda: ck.gf2_apply_grouped_plain(plan8, shard8), b3_s, b3_by),
@@ -508,6 +643,7 @@ def main() -> int:
          b4_s, b4_by),
     ]
     times = {}
+    library = {}
     for name, label, kern, plain, b_s, b_by in rows:
         plain_s = time_it(plain, iterations=2, runs=3)
         kern_s = time_it(kern)
@@ -519,7 +655,44 @@ def main() -> int:
             f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
             f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
             f"bound; plain {p_s * 1e3:.3f} ms; main-path launches "
-            f"{main_launches[name]}")
+            f"{main_launches.get(name, 'counted in the lab path')}")
+    # L1's yardstick: one PyTorch call computing the same function.
+    xor_s = min(time_it(lambda: torch.bitwise_xor(words, 1)),
+                time_it(lambda: torch.bitwise_xor(words, 1)))
+    library["roof_copy_xor"] = xor_s
+    log(f"[time] torch.bitwise_xor(words, 1), the copy roof's library call: "
+        f"{xor_s * 1e6:.2f} us = {100 * copy_s / xor_s:.1f}% of bound; "
+        f"measured copy ceiling {2 * data_bytes / times['roof_copy_xor'][0] / 1e12:.3f} "
+        f"TB/s (L1) against the data sheet's {HBM_BYTES_PER_S / 1e12:.2f}")
+    # Host time per call: the host clock over back-to-back calls with no
+    # synchronise between them, i.e. what one call costs to enqueue.  A
+    # step whose enqueue time reaches its device time is host-bound.
+    def enqueue_s(fn, calls=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        sec = (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+        return sec
+
+    lab_words = words.clone()
+    roof_step = perf_lab.carry_step(perf_lab.roof_copy_xor)
+    cmp_step = perf_lab.carry_step(
+        lambda w: ck.gf2_apply_words_cmp(enc_ap.consts, w))
+    for label, fn in (
+            ("gf2_apply_words", lambda: ck.gf2_apply_words(enc_ap.consts,
+                                                           words)),
+            ("gf2_apply_words_cmp", lambda: ck.gf2_apply_words_cmp(
+                enc_ap.consts, words)),
+            ("roof_copy_xor", lambda: perf_lab.roof_copy_xor(words)),
+            ("torch.bitwise_xor", lambda: torch.bitwise_xor(words, 1)),
+            ("lab step roof_copy", lambda: roof_step(lab_words)),
+            ("lab step enc_cmp_expand", lambda: cmp_step(lab_words))):
+        s1, s2 = enqueue_s(fn), enqueue_s(fn)
+        log(f"[host] {label}: {min(s1, s2) * 1e6:.2f} us to enqueue one call "
+            f"(host clock, runs {s1 * 1e6:.2f}, {s2 * 1e6:.2f} us)")
+    del lab_words
     # Beside the grouped kernels: the dense kernels on the same CLAY
     # operator (what grouping saves), the paired route's gather alone, and
     # the fused kernel on the k=16 operator the paired route serves.
@@ -567,21 +740,41 @@ def main() -> int:
     for label, sec in walls.items():
         log(f"[wall] {label}: {sec:.3f} s")
 
+    # The perf lab, every experiment once through its entry, as
+    # ``python -m ceph_tpu_torch.testing.perf_lab`` runs them: the path that
+    # launches the copy kernel (L1), its count reset before and read after.
+    perf_lab.reset_launch_counts()
+    for name in perf_lab.EXPERIMENTS:
+        log(f"[lab] {json.dumps(perf_lab.run_experiment(name))}")
+    lab_launches = dict(perf_lab.LAUNCHES)
+    log(f"[main path: lab] launches {lab_launches}")
+    if lab_launches["roof_copy_xor"] == 0:
+        raise AssertionError("the lab never launched roof_copy_xor")
+    main_launches.update(lab_launches)
+
     # -- 6. result lines ------------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",
+        "gf2_apply_words_cmp": "ceph_tpu/ec/pallas_kernels.py:166",
+        "gf2_apply_words_split2": "ceph_tpu/ec/pallas_kernels.py:181",
+        "gf2_apply_u8_split2": "ceph_tpu/ec/pallas_kernels.py:216",
         "gf2_apply_grouped": "ceph_tpu/ec/pallas_kernels.py:429",
         "gf2_apply_grouped_paired": "ceph_tpu/ec/pallas_kernels.py:495",
+        "roof_copy_xor": "ceph_tpu/testing/perf_lab.py:150",
     }
     sources = {
         "gf2_apply_words": "ceph_tpu_torch/csrc/gf2_apply.cu",
         "gf2_apply_u8": "ceph_tpu_torch/csrc/gf2_apply.cu",
+        "gf2_apply_words_cmp": "ceph_tpu_torch/csrc/gf2_variants.cu",
+        "gf2_apply_words_split2": "ceph_tpu_torch/csrc/gf2_variants.cu",
+        "gf2_apply_u8_split2": "ceph_tpu_torch/csrc/gf2_variants.cu",
         "gf2_apply_grouped": "ceph_tpu_torch/csrc/gf2_grouped.cu",
         "gf2_apply_grouped_paired": "ceph_tpu_torch/csrc/gf2_grouped.cu",
+        "roof_copy_xor": "ceph_tpu_torch/csrc/lab_copy.cu",
     }
     kernels = []
-    for name in ck.LAUNCHES:
+    for name in list(ck.LAUNCHES) + list(perf_lab.LAUNCHES):
         k_s, p_s, b_s, b_by = times[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -592,7 +785,8 @@ def main() -> int:
             "max_abs_err": errs[name],
             "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
             "bound_ms": b_s * 1e3, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": (library[name] * 1e3 if name in library
+                           else None),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

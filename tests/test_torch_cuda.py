@@ -118,3 +118,74 @@ def test_grouped_apply_routes(cuda):
         assert ck.LAUNCHES[name] == before[name] + 1
         assert sum(ck.LAUNCHES.values()) == sum(before.values()) + 1
         assert torch.equal(got, ck.gf2_apply_grouped_plain(ap.plan, data))
+
+
+# (wrapper, plain version, input shapes): the encode-variant kernels; a
+# shape of two is a (B, C) stripe batch, which only the byte kernel takes
+VARIANT_KERNELS = [
+    ("gf2_apply_words_cmp", ck.gf2_apply_words_cmp_plain,
+     [(4096,), (4097 * 4,), (12,)]),
+    ("gf2_apply_words_split2", ck.gf2_apply_words_split2_plain,
+     [(4096,), (4097 * 4,), (12,)]),
+    ("gf2_apply_u8_split2", ck.gf2_apply_u8_split2_plain,
+     [(4096,), (4097 * 4,), (1001,), (5, 96)]),
+]
+VARIANT_CASES = [(name, plain, shape) for name, plain, shapes
+                 in VARIANT_KERNELS for shape in shapes]
+
+
+@pytest.mark.parametrize("coeff", ["encode", "gate_edge_32x32", "one_row"])
+@pytest.mark.parametrize("name,plain,shape", VARIANT_CASES,
+                         ids=[f"{c[0]}-{c[2]}" for c in VARIANT_CASES])
+def test_variant_kernels_match_plain(cuda, name, plain, shape, coeff):
+    mat = {"encode": generator_matrix("reed_sol_van", 8, 4)[8:],
+           "gate_edge_32x32": np.random.default_rng(1).integers(
+               0, 256, (32, 32), dtype=np.uint8),
+           "one_row": np.random.default_rng(2).integers(
+               0, 256, (1, 1000), dtype=np.uint8)}[coeff]
+    consts = ck.ShardApply(mat).consts
+    on_bytes = name == "gf2_apply_u8_split2"
+    full = (shape[0], consts.kin, shape[1]) if len(shape) == 2 \
+        else (consts.kin,) + shape
+    data = _u8(full, 7, cuda)
+    arg = data if on_bytes else ck.bytes_to_words(data)
+    mat_t = consts.plain_bm(cuda) if on_bytes else consts.plain_bm32(cuda)
+    before = ck.LAUNCHES[name]
+    got = ck.KERNELS[name](consts, arg)
+    assert ck.LAUNCHES[name] == before + 1
+    assert torch.equal(got, plain(mat_t, arg))
+
+
+@pytest.mark.parametrize("variant", ck.ENCODE_VARIANTS)
+def test_shard_apply_launches_the_routed_kernel(cuda, variant):
+    """Under each variant the entries launch exactly ``route``'s kernel:
+    the variant's for an unblocked matrix, B1 for a blocked one."""
+    prev = ck.get_encode_variant()
+    ck.set_encode_variant(variant)
+    try:
+        for coeff in (generator_matrix("reed_sol_van", 8, 4)[8:],
+                      np.random.default_rng(3).integers(
+                          0, 256, (20, 60), dtype=np.uint8)):
+            ap = ck.ShardApply(coeff)
+            data = _u8((ap.kin, 8192), 5, cuda)
+            before = dict(ck.LAUNCHES)
+            got = ap.apply_bytes(data)
+            name = ap.route(8192)
+            assert ck.LAUNCHES[name] == before[name] + 1
+            assert sum(ck.LAUNCHES.values()) == sum(before.values()) + 1
+            assert torch.equal(got, ck.gf2_apply_u8_plain(
+                ap.consts.plain_bm(cuda), data))
+    finally:
+        ck.set_encode_variant(prev)
+
+
+@pytest.mark.parametrize("shape", [(8, 1 << 16), (8, 1001), (3,)])
+def test_roof_copy_kernel_matches_plain(cuda, shape):
+    from ceph_tpu_torch.testing import perf_lab
+
+    words = torch.from_numpy(np.random.default_rng(4).integers(
+        -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).to(cuda)
+    before = perf_lab.LAUNCHES["roof_copy_xor"]
+    got = perf_lab.roof_copy_xor(words)
+    assert perf_lab.LAUNCHES["roof_copy_xor"] == before + 1
+    assert torch.equal(got, perf_lab.roof_copy_xor_plain(words))

@@ -77,6 +77,18 @@ assert ec._engine.grouped_applier(R) is not None
 """ + CHECK
 
 
+# The port's perf lab: its experiments on the CPU (plain versions) and its
+# copy kernel's wrapper.
+BLOCKED_LAB_RUN = BLOCKER + r"""
+import os
+os.environ["PERF_LAB_STRIPES"] = "64"
+import ceph_tpu_torch.testing
+from ceph_tpu_torch.testing import perf_lab
+for name in ("roof_copy", "enc_cmp_expand", "enc_u8_split2"):
+    assert perf_lab.run_experiment(name, device="cpu")["bit_identical"]
+""" + CHECK
+
+
 def _run_blocked(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -91,6 +103,10 @@ def test_port_runs_with_jax_and_ceph_tpu_blocked():
 
 def test_clay_repair_runs_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_CLAY_RUN)
+
+
+def test_perf_lab_runs_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_LAB_RUN)
 
 
 def _imported_modules(path: pathlib.Path):

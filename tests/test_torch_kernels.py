@@ -145,9 +145,18 @@ def test_wrappers_refuse_other_devices():
 def test_plain_versions_count_no_launches():
     ck.reset_launch_counts()
     ap = ck.ShardApply(_rs84()[8:])
-    ap(torch.from_numpy(_bytes((2, 8, 64), seed=1)))
-    ap.apply_words(torch.from_numpy(_words((8, 16), seed=1)))
+    prev = ck.get_encode_variant()
+    try:
+        for variant in ck.ENCODE_VARIANTS:
+            ck.set_encode_variant(variant)
+            ap(torch.from_numpy(_bytes((2, 8, 64), seed=1)))
+            ap.apply_words(torch.from_numpy(_words((8, 16), seed=1)))
+    finally:
+        ck.set_encode_variant(prev)
     assert ck.LAUNCHES == {"gf2_apply_words": 0, "gf2_apply_u8": 0,
+                           "gf2_apply_words_cmp": 0,
+                           "gf2_apply_words_split2": 0,
+                           "gf2_apply_u8_split2": 0,
                            "gf2_apply_grouped": 0,
                            "gf2_apply_grouped_paired": 0}
 
@@ -163,13 +172,15 @@ def test_encode_variant_selection(monkeypatch):
         assert ck.get_encode_variant() == "enc_u8_expand"
         with pytest.raises(ValueError):
             ck.set_encode_variant("nope")
-        with pytest.raises(NotImplementedError):
-            ck.set_encode_variant("enc_split2")
+        for name in ("enc_cmp_expand", "enc_split2", "enc_u8_split2"):
+            ck.set_encode_variant(name)
+            assert ck.get_encode_variant() == name
+        assert ck.ENCODE_VARIANTS == pk.ENCODE_VARIANTS
     finally:
         ck.set_encode_variant(prev)
 
 
-@pytest.mark.parametrize("variant", ["", "enc_u8_expand"])
+@pytest.mark.parametrize("variant", ck.ENCODE_VARIANTS)
 def test_shard_apply_variants_agree(variant):
     """Both formulations behind apply_bytes / __call__ give the oracle's
     bytes, 2-D and batched, including into a strided output view."""
