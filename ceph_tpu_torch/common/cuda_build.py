@@ -28,7 +28,8 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 # csrc/<name>.cu, one library each
-SOURCES = ("gf2_apply", "gf2_variants", "gf2_grouped", "lab_copy")
+SOURCES = ("gf2_apply", "gf2_variants", "gf2_grouped", "lab_copy",
+           "lab_bits")
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",

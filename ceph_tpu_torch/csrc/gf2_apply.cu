@@ -3,6 +3,10 @@
 // Replaces two Pallas TPU kernels of ceph_tpu/ec/pallas_kernels.py:
 //   gf2_apply_words <- _kernel (:96-117) launched by _pallas_apply_words
 //                      (:120-141): (kin, N4) int32 lane words -> (mout, N4).
+//                      gf2_apply_words_tiled is the same kernel at the
+//                      launch's `tile` argument (the perf lab's enc_tile_<n>
+//                      sweep); the production entry keeps one column group
+//                      of 1024 words per block.
 //   gf2_apply_u8    <- _kernel_u8 (:199-213) launched by
 //                      _pallas_apply_u8_variant (:267-288): the uint8
 //                      formulation.  The TPU needs a (kin, 4, N/4) slot
@@ -56,67 +60,81 @@ constexpr int RB = 4;        // output rows per register block
 constexpr int KC = 32;       // input rows per shared-memory table chunk
 constexpr int THREADS = 256;
 
-template <class IO>
+// TILED: a block covers `groups` column groups of THREADS threads (a tile of
+// groups * THREADS * VEC words per row, the Pallas kernel's `tile`) and walks
+// them in turn; with one table chunk (kin <= KC) it stages the chunk once for
+// all of them.  Untiled (the production launch) a block covers one group.
+template <class IO, bool TILED>
 __global__ void __launch_bounds__(THREADS)
-gf2_apply_kernel(const uint32_t* __restrict__ table, IO io, int kin, int mout) {
+gf2_apply_kernel(const uint32_t* __restrict__ table, IO io, int kin, int mout,
+                 int groups) {
   __shared__ uint32_t s_tab[RB * KC * 8];
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const bool live = t < io.threads_needed();
   const int r0 = blockIdx.y * RB;  // this block's output rows
+  const int ngroups = TILED ? groups : 1;
+  for (int g = 0; g < ngroups; ++g) {
+    const long long t =
+        ((long long)blockIdx.x * ngroups + g) * blockDim.x + threadIdx.x;
+    const bool live = t < io.threads_needed();
 
-  uint32_t acc[RB][VEC];
+    uint32_t acc[RB][VEC];
 #pragma unroll
-  for (int rr = 0; rr < RB; ++rr)
+    for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[rr][v] = 0u;
+      for (int v = 0; v < VEC; ++v) acc[rr][v] = 0u;
 
-  for (int c0 = 0; c0 < kin; c0 += KC) {
-    const int kc = min(KC, kin - c0);
-    __syncthreads();  // previous chunk fully consumed
-    for (int i = threadIdx.x; i < RB * kc * 8; i += blockDim.x) {
-      const int rr = i / (kc * 8);
-      const int rem = i - rr * (kc * 8);  // cc * 8 + j
-      const int r = r0 + rr;
-      s_tab[rr * (KC * 8) + rem] =
-          r < mout ? table[((long long)r * kin + c0) * 8 + rem] : 0u;
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int cc = 0; cc < kc; ++cc) {
-      uint32_t w[VEC];
-      io.load(c0 + cc, t, w);
+    for (int c0 = 0; c0 < kin; c0 += KC) {
+      const int kc = min(KC, kin - c0);
+      if (!TILED || g == 0 || kin > KC) {
+        __syncthreads();  // previous chunk fully consumed
+        for (int i = threadIdx.x; i < RB * kc * 8; i += blockDim.x) {
+          const int rr = i / (kc * 8);
+          const int rem = i - rr * (kc * 8);  // cc * 8 + j
+          const int r = r0 + rr;
+          s_tab[rr * (KC * 8) + rem] =
+              r < mout ? table[((long long)r * kin + c0) * 8 + rem] : 0u;
+        }
+        __syncthreads();
+      }
+      if (!live) continue;
+      for (int cc = 0; cc < kc; ++cc) {
+        uint32_t w[VEC];
+        io.load(c0 + cc, t, w);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t m[VEC];
+        for (int j = 0; j < 8; ++j) {
+          uint32_t m[VEC];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) m[v] = spread(w[v], j);
+          for (int v = 0; v < VEC; ++v) m[v] = spread(w[v], j);
 #pragma unroll
-        for (int rr = 0; rr < RB; ++rr) {
-          const uint32_t col = s_tab[rr * (KC * 8) + cc * 8 + j];
+          for (int rr = 0; rr < RB; ++rr) {
+            const uint32_t col = s_tab[rr * (KC * 8) + cc * 8 + j];
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[rr][v] ^= m[v] & col;
+            for (int v = 0; v < VEC; ++v) acc[rr][v] ^= m[v] & col;
+          }
         }
       }
     }
-  }
-  if (live) {
+    if (live) {
 #pragma unroll
-    for (int rr = 0; rr < RB; ++rr)
-      if (r0 + rr < mout) io.store(r0 + rr, t, acc[rr]);
+      for (int rr = 0; rr < RB; ++rr)
+        if (r0 + rr < mout) io.store(r0 + rr, t, acc[rr]);
+    }
   }
 }
 
-template <class IO>
+// One launch: `groups` column groups per block when TILED, else one.
+template <bool TILED, class IO>
 int launch(const uint32_t* table, const IO& io, long long threads, int kin,
-           int mout, cudaStream_t stream) {
+           int mout, int groups, cudaStream_t stream) {
   if (threads <= 0 || kin <= 0 || mout <= 0) return 0;
-  const long long blocks = (threads + THREADS - 1) / THREADS;
+  const long long per_block = (long long)THREADS * (TILED ? groups : 1);
+  const long long blocks = (threads + per_block - 1) / per_block;
   const int row_blocks = (mout + RB - 1) / RB;
   if (blocks > 0x7fffffffLL || row_blocks > 65535)
     return int(cudaErrorInvalidConfiguration);
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(row_blocks));
-  gf2_apply_kernel<IO><<<grid, THREADS, 0, stream>>>(table, io, kin, mout);
+  gf2_apply_kernel<IO, TILED><<<grid, THREADS, 0, stream>>>(table, io, kin,
+                                                            mout, groups);
   return int(cudaGetLastError());
 }
 
@@ -126,10 +144,25 @@ extern "C" int gf2_apply_words(const void* table, const void* in, void* out,
                                int kin, int mout, long long n4,
                                long long in_stride, long long out_stride,
                                void* stream) {
-  return launch(static_cast<const uint32_t*>(table),
-                word_io(in, out, n4, in_stride, out_stride),
-                (n4 + VEC - 1) / VEC, kin, mout,
-                static_cast<cudaStream_t>(stream));
+  return launch<false>(static_cast<const uint32_t*>(table),
+                       word_io(in, out, n4, in_stride, out_stride),
+                       (n4 + VEC - 1) / VEC, kin, mout, 1,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// gf2_apply_words at a given tile: `tile` words of every row per block, a
+// positive multiple of THREADS * VEC = 1024 (the Pallas kernel's `tile`
+// argument, _pallas_apply_words(..., tile=)).
+extern "C" int gf2_apply_words_tiled(const void* table, const void* in,
+                                     void* out, int kin, int mout,
+                                     long long n4, long long in_stride,
+                                     long long out_stride, int tile,
+                                     void* stream) {
+  if (tile <= 0 || tile % (THREADS * VEC)) return int(cudaErrorInvalidValue);
+  return launch<true>(static_cast<const uint32_t*>(table),
+                      word_io(in, out, n4, in_stride, out_stride),
+                      (n4 + VEC - 1) / VEC, kin, mout, tile / (THREADS * VEC),
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gf2_apply_u8(const void* table, const void* in, void* out,
@@ -137,9 +170,9 @@ extern "C" int gf2_apply_u8(const void* table, const void* in, void* out,
                             long long in_row_stride, long long in_seg_stride,
                             long long out_row_stride, long long out_seg_stride,
                             void* stream) {
-  return launch(static_cast<const uint32_t*>(table),
-                byte_io(in, out, seg, nseg, in_row_stride, in_seg_stride,
-                        out_row_stride, out_seg_stride),
-                (seg * nseg + 4 * VEC - 1) / (4 * VEC), kin, mout,
-                static_cast<cudaStream_t>(stream));
+  return launch<false>(static_cast<const uint32_t*>(table),
+                       byte_io(in, out, seg, nseg, in_row_stride,
+                               in_seg_stride, out_row_stride, out_seg_stride),
+                       (seg * nseg + 4 * VEC - 1) / (4 * VEC), kin, mout, 1,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,8 @@ and recovery of the jax_rs codecs:
 
 - ``gf2_apply_words``: (kin, N4) int32 lane words -> (mout, N4) int32.
   Replaces ``_kernel`` (pallas_kernels.py:96-117, launched by
-  ``_pallas_apply_words`` :120-141), blocked contraction included.
+  ``_pallas_apply_words`` :120-141), blocked contraction included; its
+  ``tile`` argument is the launch's (words of a row per block).
 - ``gf2_apply_u8``: (kin, N) uint8 byte streams, or a (B, kin, C) stripe
   batch, -> (mout, N) / (B, mout, C) uint8.  Replaces ``_kernel_u8``
   (:199-213, launched by ``_pallas_apply_u8_variant`` :267-288), the
@@ -44,7 +45,9 @@ position, so the TPU applier's ``out[gather_rows]`` reorder is not needed.
 Each kernel has a plain PyTorch version of the same function here
 (``<wrapper>_plain``).  A wrapper uses it only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises.  Each launch adds one
-to ``LAUNCHES[name]``.
+to ``LAUNCHES[name]`` (``count_launch``); a call recorded into a CUDA graph
+under capture is not a launch, and a graph's replays do not pass through
+the wrapper.
 
 Bit order is LSB-first and lane order little-endian (byte 0 = bits 0..7 of
 the int32 word), matching ``bitcast_convert_type`` at pallas_kernels.py:
@@ -77,6 +80,14 @@ LAUNCHES = {"gf2_apply_words": 0, "gf2_apply_u8": 0,
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one launch of ``name``'s kernel to ``counts``, unless the call
+    was recorded into a CUDA graph being captured: that launches nothing
+    until the graph replays."""
+    if not torch.cuda.is_current_stream_capturing():
+        counts[name] += 1
 
 
 # -- encode-variant selection -------------------------------------------------
@@ -386,6 +397,11 @@ def c_entry(source: str, name: str, argtypes: list):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # table, in, out, kin, mout, n4, in_stride, out_stride, stream
 _WORD_ARGS = [_P, _P, _P, _I, _I, _LL, _LL, _LL, _P]
+# ..., out_stride, tile, stream
+_TILED_WORD_ARGS = _WORD_ARGS[:-1] + [_I, _P]
+# B1's tile (words of a row per block) is a multiple of its block's 256
+# threads x 4 words
+TILE_QUANTUM = 1024
 # table, in, out, kin, mout, seg, nseg, in_row, in_seg, out_row, out_seg,
 # stream
 _BYTE_ARGS = [_P, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P]
@@ -409,11 +425,12 @@ def _require_unblocked(name: str, consts: GF2Constants) -> None:
 
 
 def _words_launch(name: str, source: str, plain, consts: GF2Constants,
-                  words: torch.Tensor,
-                  out: torch.Tensor | None) -> torch.Tensor:
+                  words: torch.Tensor, out: torch.Tensor | None,
+                  tile: int | None = None) -> torch.Tensor:
     """Shared body of the word-layout wrappers: (kin, N4) int32 ->
-    (mout, N4) int32 by the kernel ``name`` on a CUDA tensor, by ``plain``
-    on a CPU tensor."""
+    (mout, N4) int32 by the kernel ``name`` on a CUDA tensor (through its
+    ``<name>_tiled`` entry when given a tile), by ``plain`` on a CPU
+    tensor."""
     if words.dtype != torch.int32 or words.ndim != 2:
         raise TypeError(f"expected 2-D int32 words, got {words.dtype} "
                         f"{tuple(words.shape)}")
@@ -436,14 +453,17 @@ def _words_launch(name: str, source: str, plain, consts: GF2Constants,
             or out.device != words.device or out.stride(1) != 1):
         raise ValueError(f"{name}: bad output tensor")
     table = consts.table(words.device)
+    args = [table.data_ptr(), words.data_ptr(), out.data_ptr(), consts.kin,
+            consts.mout, n4, words.stride(0), out.stride(0)]
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = c_entry(source, name, _WORD_ARGS)(
-            table.data_ptr(), words.data_ptr(), out.data_ptr(),
-            consts.kin, consts.mout, n4, words.stride(0), out.stride(0),
-            stream)
+        if tile is None:
+            rc = c_entry(source, name, _WORD_ARGS)(*args, stream)
+        else:
+            rc = c_entry(source, f"{name}_tiled", _TILED_WORD_ARGS)(
+                *args, tile, stream)
     check_rc(name, rc)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 
@@ -493,16 +513,32 @@ def _bytes_launch(name: str, source: str, plain, consts: GF2Constants,
             consts.kin, consts.mout, seg, nseg, in_row, in_seg, out_row,
             out_seg, stream)
     check_rc(name, rc)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 
+def _check_tile(tile) -> None:
+    """Raise unless ``tile`` is None or a positive multiple of
+    TILE_QUANTUM words."""
+    if tile is None:
+        return
+    if (not isinstance(tile, int) or isinstance(tile, bool) or tile <= 0
+            or tile % TILE_QUANTUM):
+        raise ValueError(f"tile {tile!r} is not a positive multiple of "
+                         f"{TILE_QUANTUM} words")
+
+
 def gf2_apply_words(consts: GF2Constants, words: torch.Tensor,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """B1: (kin, N4) int32 -> (mout, N4) int32, any matrix.  The plain
-    version for a CPU tensor."""
+                    out: torch.Tensor | None = None,
+                    tile: int | None = None) -> torch.Tensor:
+    """B1: (kin, N4) int32 -> (mout, N4) int32, any matrix.  ``tile``, the
+    Pallas launch's argument (``_pallas_apply_words(..., tile=)``), is the
+    words of each row one block covers, a positive multiple of 1024; None
+    is the production launch (1024 words per block).  The plain version for
+    a CPU tensor, at any tile."""
+    _check_tile(tile)
     return _words_launch("gf2_apply_words", KERNEL_SOURCE,
-                         gf2_apply_words_plain, consts, words, out)
+                         gf2_apply_words_plain, consts, words, out, tile)
 
 
 def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
@@ -980,7 +1016,7 @@ def _grouped_launch(name: str, plan: GroupedPlan, data: torch.Tensor,
                 rc = fn(*head, data.shape[1], 1, data.stride(0), 0,
                         out.stride(0), 0, stream)
     check_rc(name, rc)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 

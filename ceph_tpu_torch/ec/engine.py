@@ -234,11 +234,13 @@ class BitplaneEngine:
         operator, the dense kernels for any other matrix."""
         return self._applier_for(coeff)(self.tensor(data), out)
 
-    def apply_words(self, coeff: np.ndarray, words) -> torch.Tensor:
-        """Word-typed hot path: (k, N4) int32 lanes -> (m, N4) int32.  Use
-        cuda_kernels.bytes_to_words/words_to_bytes at the boundaries."""
+    def apply_words(self, coeff: np.ndarray, words,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+        """Word-typed hot path: (k, N4) int32 lanes -> (m, N4) int32, into
+        ``out`` when given.  Use cuda_kernels.bytes_to_words/words_to_bytes
+        at the boundaries."""
         return self._applier_for(coeff).apply_words(
-            self.tensor(words, torch.int32))
+            self.tensor(words, torch.int32), out)
 
     def apply_packets(self, BM: np.ndarray, data, w: int) -> torch.Tensor:
         """Apply a RAW GF(2) bitmatrix (rows, k*w) in packet layout to data

@@ -180,11 +180,12 @@ class ErasureCodeJaxRS(ErasureCode):
         self._require_gf8("encode_shards_device")
         return self._engine.encode_shards(self.generator, data)
 
-    def encode_words_device(self, words) -> torch.Tensor:
+    def encode_words_device(self, words, out=None) -> torch.Tensor:
         """Word-typed hot path: (k, N4) int32 shard lanes -> (m, N4) parity
-        lanes, no uint8 relayout (cuda_kernels.bytes_to_words view)."""
+        lanes, no uint8 relayout (cuda_kernels.bytes_to_words view); into
+        ``out`` when given."""
         self._require_gf8("encode_words_device")
-        return self._engine.apply_words(self.generator[self.k:], words)
+        return self._engine.apply_words(self.generator[self.k:], words, out)
 
     def decode_words_device(self, available, want_to_read) -> torch.Tensor:
         """Word-typed reconstruct: available maps chunk id -> (N4,) int32

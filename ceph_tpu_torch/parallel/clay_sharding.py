@@ -45,7 +45,8 @@ def clay_plane_ranges(planes, sc: int) -> list[tuple[int, int]]:
     return runs
 
 
-def batched_clay_plane_repair_device(ec, R, helper_planes) -> torch.Tensor:
+def batched_clay_plane_repair_device(ec, R, helper_planes,
+                                     out=None) -> torch.Tensor:
     """Recover a batch of lost chunks from pre-extracted helper planes, on
     the codec's device.
 
@@ -54,7 +55,8 @@ def batched_clay_plane_repair_device(ec, R, helper_planes) -> torch.Tensor:
     helper-ascending order (the layout ``clay_repair_operator`` probed R
     against).  Returns a (b, C) tensor, bit-identical to the plugin
     repair.  ONE engine apply for the whole batch, read strided as it lies
-    (no transpose to a (d*P, b*sc) layout)."""
+    (no transpose to a (d*P, b*sc) layout), into ``out`` (a contiguous
+    (b, C) tensor) when given."""
     eng = default_engine(ec.device)
     helper_planes = eng.tensor(helper_planes)
     if helper_planes.ndim != 3:
@@ -62,7 +64,9 @@ def batched_clay_plane_repair_device(ec, R, helper_planes) -> torch.Tensor:
             f"helper_planes shape {tuple(helper_planes.shape)} != (b, d*P, sc)"
         )
     b, _, sc = helper_planes.shape
-    rec = eng.apply(np.asarray(R, np.uint8), helper_planes)
+    if out is not None:
+        out = out.view(b, ec.sub_chunk_no, sc)
+    rec = eng.apply(np.asarray(R, np.uint8), helper_planes, out)
     return rec.reshape(b, ec.sub_chunk_no * sc)
 
 

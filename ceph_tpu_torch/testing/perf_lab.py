@@ -1,34 +1,41 @@
 """Headline-kernel perf lab on the card (counterpart of
 ceph_tpu/testing/perf_lab.py).
 
-Experiments at the jax_rs headline (k=8 m=4, 4 KiB stripes, 16384-stripe
-batch: (8, 2^21) int32 words, 64 MiB of data per call), each named and
-keyed as in the JAX lab:
+The JAX lab's 14 experiments at the jax_rs headline (k=8 m=4, 4 KiB
+stripes, 16384-stripe batch: (8, 2^21) int32 words, 64 MiB of data per
+call), each named and keyed as in the JAX lab, each through its own kernel:
 
 - ``roof_copy``      ``o = x ^ 1`` through the lab's copy kernel (L1,
                      ``roof_copy_xor``): the card's measured copy ceiling,
                      the denominator of every roofline share
+- ``roof_matmul``    the int8 contraction alone on already expanded bits
+                     (L3, ``roof_matmul_s8``, mma.sync on the tensor cores):
+                     bm32 (128, 256) x bits (256, N4/8) -> int32
+- ``unpack_only``    bit expansion and repack with no contraction (L2,
+                     ``unpack_repack_words``): int8 planes in shared memory
 - ``enc_base``       the production encode step (``encode_words_device``
                      under the "" variant: B1)
 - ``enc_row_carry``  the same, the step's carry updating one whole row
+- ``enc_tile_<n>``   B1 at tile n = 2048, 4096, 8192, 16384 words per block
+                     (``gf2_apply_words(..., tile=n)``)
 - ``enc_cmp_expand`` / ``enc_u8_expand`` / ``enc_split2`` /
   ``enc_u8_split2``  the encode variants, through their kernels (B5a, B2,
-                     B5b, B5c), each checked bit-identical to the
-                     production kernel before it is timed
+                     B5b, B5c)
 - ``clay_repair``    ``batched_clay_plane_repair_device`` at the CLAY
                      headline repair (k=8 m=4 d=11, lost chunk 3,
                      512 stripes x 64 KiB chunks)
 
-Not ported yet: ``unpack_only`` (L2), ``roof_matmul`` (L3) and the
-``enc_tile_<n>`` sweep, which needs a tile parameter the port's B1 does
-not take.
-
-Timing is on the card: CUDA events around back-to-back steps
-(``benchmark.cuda_seconds_per_call``), not the JAX lab's serial-loop
-differencing.  Each step does to its input, in place, what the JAX step
-does to its carry, so the work per step is the same.  Knobs, as in the JAX
-lab: ``PERF_LAB_STRIPES`` (a multiple of 64; the CLAY batch is 1/32 of it)
-and ``PERF_LAB_BUDGET_S`` (``main``'s watchdog).  With ``device="cpu"``
+Each experiment is checked bit-identical before it is timed: the encode
+steps against the numpy oracle's parity, the variants against the
+production kernel B1, ``unpack_only`` against its input, ``roof_matmul``
+against the exact product (the plain version), ``clay_repair`` against the
+lost chunk.  Timing is the JAX lab's: ``benchmark.device_seconds_per_iter``
+runs serial steps on the device (captured into CUDA graphs) and
+differences two step counts (64 and 320), so host costs cancel.  Each step
+does to its input, in place, what the JAX step does to its carry, and
+writes its kernel's output into a preallocated tensor.  Knobs, as in the
+JAX lab: ``PERF_LAB_STRIPES`` (a multiple of 64; the CLAY batch is 1/32 of
+it) and ``PERF_LAB_BUDGET_S`` (``main``'s watchdog).  With ``device="cpu"``
 the experiments run through the plain versions, check bit identity and
 skip timing; with no device they run on CUDA, or raise.  Every record
 names its device, and on CUDA the nvidia-smi name and power limit.
@@ -62,9 +69,13 @@ DEFAULT_STRIPES = 16384
 CLAY_PROFILE = {"k": "8", "m": "4", "d": "11"}
 CLAY_SC, CLAY_LOST = 1024, 3
 LAB_SOURCE = "lab_copy"
+BITS_SOURCE = "lab_bits"
+TILES = (2048, 4096, 8192, 16384)   # the JAX lab's enc_tile_<n> sweep
 
-# Launch counts of the lab's own kernel; only real launches count.
-LAUNCHES = {"roof_copy_xor": 0}
+# Launch counts of the lab's own kernels; only real launches count
+# (cuda_kernels.count_launch).
+LAUNCHES = {"roof_copy_xor": 0, "unpack_repack_words": 0,
+            "roof_matmul_s8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -118,7 +129,140 @@ def roof_copy_xor(words: torch.Tensor,
         stream = torch.cuda.current_stream(words.device).cuda_stream
         rc = fn(words.data_ptr(), out.data_ptr(), words.numel(), stream)
     ck.check_rc("roof_copy_xor", rc)
-    LAUNCHES["roof_copy_xor"] += 1
+    ck.count_launch(LAUNCHES, "roof_copy_xor")
+    return out
+
+
+# -- L2: bit expansion and repack ---------------------------------------------
+
+_PLAIN_COLS = 1 << 16   # columns per chunk: bounds the plain temporaries
+
+
+def unpack_repack_words_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain version of unpack_repack_words, the TPU kernel's body
+    (ceph_tpu/testing/perf_lab.py:190-193): ``bits = (d[:, None, :] >>
+    shift) & 1``, a (rows, 32, n) int32 plane stack, then ``sum(bits <<
+    shift, axis=1)``.  Bit 31 enters the sum as -2^31, so every partial sum
+    stays in int32."""
+    shifts = torch.arange(32, dtype=torch.int32,
+                          device=words.device)[None, :, None]
+    out = torch.empty_like(words)
+    for s in range(0, words.shape[1], _PLAIN_COLS):
+        d = words[:, s:s + _PLAIN_COLS]
+        bits = (d[:, None, :] >> shifts) & 1
+        out[:, s:s + d.shape[1]] = (bits << shifts).sum(dim=1,
+                                                        dtype=torch.int32)
+    return out
+
+
+def unpack_repack_words(words: torch.Tensor,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """L2: (rows, n4) int32 -> the same words, expanded to int8 bit planes
+    in shared memory and packed back.  Launches csrc/lab_bits.cu's kernel
+    for a contiguous CUDA tensor; the plain version for a CPU tensor."""
+    if words.dtype != torch.int32 or words.ndim != 2:
+        raise TypeError(f"expected 2-D int32 words, got {words.dtype} "
+                        f"{tuple(words.shape)}")
+    if words.device.type == "cpu":
+        res = unpack_repack_words_plain(words)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if words.device.type != "cuda":
+        raise ValueError(f"unpack_repack_words: no kernel for device "
+                         f"{words.device}")
+    if not words.is_contiguous():
+        raise ValueError("unpack_repack_words: words must be contiguous")
+    if out is None:
+        out = torch.empty_like(words)
+    if (out.shape != words.shape or out.dtype != torch.int32
+            or out.device != words.device or not out.is_contiguous()):
+        raise ValueError("unpack_repack_words: bad output tensor")
+    fn = ck.c_entry(BITS_SOURCE, "unpack_repack_words",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_void_p])
+    with torch.cuda.device(words.device):
+        stream = torch.cuda.current_stream(words.device).cuda_stream
+        rc = fn(words.data_ptr(), out.data_ptr(), words.shape[0],
+                words.shape[1], stream)
+    ck.check_rc("unpack_repack_words", rc)
+    ck.count_launch(LAUNCHES, "unpack_repack_words")
+    return out
+
+
+# -- L3: the int8 contraction alone ---------------------------------------------
+
+MM_ROWS, MM_DEPTH = M * 32, K * 32     # bm32 is (128, 256)
+
+
+def lab_bm32() -> np.ndarray:
+    """The JAX lab's bm32 (perf_lab.py:227-229): the lane-expanded GF(2)
+    bitmatrix of reed_sol_van k=8 m=4's parity rows, (128, 256) int8."""
+    from ceph_tpu_torch.ec import bitmatrix
+    from ceph_tpu_torch.ec.matrix import generator_matrix
+
+    return bitmatrix.expand_bitmatrix_lanes(bitmatrix.gf_matrix_to_bitmatrix(
+        generator_matrix("reed_sol_van", K, M)[K:])).astype(np.int8)
+
+
+def roof_matmul_s8_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of roof_matmul_s8: the exact integer product of (m, k)
+    and (k, n) int8 as (m, n) int32, the TPU kernel's ``jnp.dot(...,
+    preferred_element_type=int32)`` (perf_lab.py:236-237).  Contracted in
+    float64: every product and partial sum is an integer of magnitude at
+    most k * 128 * 128 < 2^53, so it is exact."""
+    af = a.to(torch.float64)
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.int32,
+                      device=b.device)
+    for s in range(0, b.shape[1], _PLAIN_COLS):
+        bs = b[:, s:s + _PLAIN_COLS]
+        out[:, s:s + bs.shape[1]] = (af @ bs.to(torch.float64)).to(
+            torch.int32)
+    return out
+
+
+def roof_matmul_s8(a: torch.Tensor, b: torch.Tensor,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """L3: C = A . B for A (128, 256) int8 row-major and B (256, n) int8
+    with n contiguous, any n, as (128, n) int32.  Launches csrc/
+    lab_bits.cu's mma.sync kernel for contiguous CUDA tensors; the plain
+    version for CPU tensors."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or b.ndim != 2:
+        raise TypeError(f"expected int8 A and 2-D int8 B, got {a.dtype}, "
+                        f"{b.dtype} {tuple(b.shape)}")
+    if tuple(a.shape) != (MM_ROWS, MM_DEPTH) or b.shape[0] != MM_DEPTH:
+        raise ValueError(f"roof_matmul_s8 takes A ({MM_ROWS}, {MM_DEPTH}) "
+                         f"and B ({MM_DEPTH}, n), got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    shape = (MM_ROWS, b.shape[1])
+    if b.device.type == "cpu" and a.device.type == "cpu":
+        res = roof_matmul_s8_plain(a, b)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if b.device.type != "cuda" or a.device != b.device:
+        raise ValueError(f"roof_matmul_s8: no kernel for devices "
+                         f"{a.device}, {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("roof_matmul_s8: A and B must be contiguous")
+    if a.data_ptr() % 16:
+        raise ValueError("roof_matmul_s8: A must be 16-byte aligned")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=b.device)
+    if (tuple(out.shape) != shape or out.dtype != torch.int32
+            or out.device != b.device or not out.is_contiguous()):
+        raise ValueError("roof_matmul_s8: bad output tensor")
+    fn = ck.c_entry(BITS_SOURCE, "roof_matmul_s8",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_longlong, ctypes.c_void_p])
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), b.shape[1],
+                stream)
+    ck.check_rc("roof_matmul_s8", rc)
+    ck.count_launch(LAUNCHES, "roof_matmul_s8")
     return out
 
 
@@ -182,7 +326,8 @@ def _encode_variant(name: str):
 
 def carry_step(fn):
     """The JAX lab's step ``w.at[0, 0].set(fn(w)[0, 0] ^ i)``, in place on
-    the first element of a contiguous input."""
+    the first element of a contiguous input (cast to its type, as the JAX
+    step's ``astype``)."""
     i = [0]
 
     def step(x):
@@ -195,14 +340,15 @@ def carry_step(fn):
 
 def _check_and_time(step, x, expect: torch.Tensor, got: torch.Tensor,
                     nbytes: int) -> dict:
-    """Bit-check an experiment's output, then time its step on the card.
-    Off CUDA the check still runs (plain versions) and timing is skipped,
-    as the JAX lab skips it off the TPU."""
+    """Bit-check an experiment's output, then time its step on the card
+    with the device loop (``benchmark.device_seconds_per_iter``, 64 and 320
+    steps, as the JAX lab).  Off CUDA the check still runs (plain versions)
+    and timing is skipped, as the JAX lab skips it off the TPU."""
     if not torch.equal(expect.to(got.device), got):
         raise AssertionError("experiment output != its reference")
     if x.device.type != "cuda":
         return {"bit_identical": True, "skipped_timing": "non-cuda device"}
-    sec = benchmark.cuda_seconds_per_call(lambda: step(x))
+    sec = benchmark.device_seconds_per_iter(step, x, lo=64, hi=320)
     return {"sec": sec, "gibps": _gibps(nbytes, sec), "bit_identical": True}
 
 
@@ -213,10 +359,42 @@ def exp_roof_copy(dev: torch.device) -> dict:
     write the whole (8, N4) buffer once, ``o = x ^ 1`` (L1)."""
     data, words = _data(dev)
     want = torch.from_numpy(data.view(np.int32) ^ 1)
-    rec = _check_and_time(carry_step(roof_copy_xor), words, want,
-                          roof_copy_xor(words), data.nbytes)
+    out = torch.empty_like(words)
+    rec = _check_and_time(
+        carry_step(lambda w: roof_copy_xor(w, out=out)), words, want,
+        roof_copy_xor(words), data.nbytes)
     if "sec" in rec:
         rec["traffic_gibps"] = _gibps(2 * data.nbytes, rec["sec"])
+    return rec
+
+
+def exp_unpack_only(dev: torch.device) -> dict:
+    """Bit expansion and repack with no contraction (L2): the expansion
+    half of the int8 formulation alone.  The output must equal the
+    input."""
+    data, words = _data(dev)
+    out = torch.empty_like(words)
+    return _check_and_time(
+        carry_step(lambda w: unpack_repack_words(w, out=out)), words,
+        words.clone(), unpack_repack_words(words), data.nbytes)
+
+
+def exp_roof_matmul(dev: torch.device) -> dict:
+    """The int8 contraction on already expanded bits (L3), the JAX lab's
+    shapes: bm32 (128, 256) x bits (256, N4/8) in {0, 1} (seed 1) ->
+    (128, N4/8) int32, checked against the exact product.  ``data_gibps``
+    counts the data bytes the bits stand for, as the JAX lab does."""
+    n4 = stripes() * CHUNK // 4 // 8   # bits are 8x the data: N4/8 columns
+    a = torch.from_numpy(lab_bm32()).to(dev)
+    bits = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2, (MM_DEPTH, n4), np.int8)).to(dev)
+    out = torch.empty((MM_ROWS, n4), dtype=torch.int32, device=dev)
+    rec = _check_and_time(
+        carry_step(lambda b: roof_matmul_s8(a, b, out=out)), bits,
+        roof_matmul_s8_plain(a, bits), roof_matmul_s8(a, bits), K * n4 * 4)
+    if "sec" in rec:
+        rec["data_gibps"] = rec.pop("gibps")
+        rec["macs_per_sec"] = MM_ROWS * MM_DEPTH * n4 / rec["sec"]
     return rec
 
 
@@ -228,15 +406,22 @@ def _production_parity(data: np.ndarray) -> torch.Tensor:
     return ck.bytes_to_words(torch.from_numpy(np.ascontiguousarray(par)))
 
 
+def _parity_out(words: torch.Tensor) -> torch.Tensor:
+    return torch.empty((M, words.shape[1]), dtype=torch.int32,
+                       device=words.device)
+
+
 def exp_enc_base(dev: torch.device) -> dict:
     """Production headline step: the codec's word entry under the ""
     variant (B1), the step's carry touching one word."""
     data, words = _data(dev)
     ec = _codec(dev)
+    out = _parity_out(words)
     with _encode_variant(""):
-        return _check_and_time(carry_step(ec.encode_words_device), words,
-                               _production_parity(data),
-                               ec.encode_words_device(words), data.nbytes)
+        return _check_and_time(
+            carry_step(lambda w: ec.encode_words_device(w, out=out)), words,
+            _production_parity(data), ec.encode_words_device(words),
+            data.nbytes)
 
 
 def exp_enc_row_carry(dev: torch.device) -> dict:
@@ -244,13 +429,31 @@ def exp_enc_row_carry(dev: torch.device) -> dict:
     parity row 0): against enc_base, the cost of a row-sized carry."""
     data, words = _data(dev)
     ec = _codec(dev)
+    out = _parity_out(words)
 
     def step(w):
-        w[0].bitwise_xor_(ec.encode_words_device(w)[0])
+        w[0].bitwise_xor_(ec.encode_words_device(w, out=out)[0])
 
     with _encode_variant(""):
         return _check_and_time(step, words, _production_parity(data),
                                ec.encode_words_device(words), data.nbytes)
+
+
+def _tile_exp(tile: int):
+    """enc_tile_<tile>: B1 launched at ``tile`` words of each row per
+    block, the JAX lab's ``_pallas_apply_words(..., tile=tile)`` step."""
+    def run(dev: torch.device) -> dict:
+        data, words = _data(dev)
+        consts = ck.ShardApply(_codec(dev).generator[K:]).consts
+        out = _parity_out(words)
+        rec = _check_and_time(
+            carry_step(lambda w: ck.gf2_apply_words(consts, w, out=out,
+                                                    tile=tile)),
+            words, _production_parity(data),
+            ck.gf2_apply_words(consts, words, tile=tile), data.nbytes)
+        rec["tile"] = tile
+        return rec
+    return run
 
 
 def _variant_exp(wrapper, on_bytes: bool):
@@ -264,10 +467,10 @@ def _variant_exp(wrapper, on_bytes: bool):
         x = ck.words_to_bytes(words) if on_bytes else words
         if on_bytes:
             expect = ck.words_to_bytes(expect)
-
-        def fn(v):
-            return wrapper(consts, v)
-        return _check_and_time(carry_step(fn), x, expect, fn(x), data.nbytes)
+        out = torch.empty_like(expect)
+        return _check_and_time(
+            carry_step(lambda v: wrapper(consts, v, out=out)), x, expect,
+            wrapper(consts, x), data.nbytes)
     return run
 
 
@@ -294,15 +497,20 @@ def exp_clay_repair(dev: torch.device) -> dict:
         chunks[:, h].reshape(b, ec.sub_chunk_no, CLAY_SC)[:, planes]
         for h in helpers], dim=1).reshape(b, -1, CLAY_SC)
     got = batched_clay_plane_repair_device(ec, R, helper)
+    out = torch.empty_like(got)
     return _check_and_time(
-        lambda x: batched_clay_plane_repair_device(ec, R, x), helper,
-        chunks[:, CLAY_LOST], got, b * C)
+        carry_step(lambda x: batched_clay_plane_repair_device(ec, R, x,
+                                                              out=out)),
+        helper, chunks[:, CLAY_LOST], got, b * C)
 
 
 EXPERIMENTS = {
     "roof_copy": exp_roof_copy,
+    "roof_matmul": exp_roof_matmul,
+    "unpack_only": exp_unpack_only,
     "enc_base": exp_enc_base,
     "enc_row_carry": exp_enc_row_carry,
+    **{f"enc_tile_{t}": _tile_exp(t) for t in TILES},
     "enc_cmp_expand": _variant_exp(ck.gf2_apply_words_cmp, on_bytes=False),
     "enc_u8_expand": _variant_exp(ck.gf2_apply_u8, on_bytes=True),
     "enc_split2": _variant_exp(ck.gf2_apply_words_split2, on_bytes=False),

@@ -54,13 +54,19 @@ def loops(sass: str) -> dict[str, list[tuple[int, dict[str, int]]]]:
     return out
 
 
-def report(source: str) -> list[str]:
-    """One line per (kernel, loop) of a built source's library."""
+def kernel_loops(source: str) -> dict[str, list[tuple[int, dict[str, int]]]]:
+    """``loops`` of a built source's library."""
     sass = subprocess.run(
         [cuobjdump_path(), "-sass", str(cuda_build.library_path(source))],
         capture_output=True, text=True, check=True, timeout=120).stdout
+    return loops(sass)
+
+
+def report(source: str) -> list[str]:
+    """One line per (kernel, loop) of a built source's library."""
     return [f"{source}: {name}: loop of {n} instructions {ops}"
-            for name, found in loops(sass).items() for n, ops in found]
+            for name, found in kernel_loops(source).items()
+            for n, ops in found]
 
 
 def main(argv=None) -> int:

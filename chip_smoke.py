@@ -9,7 +9,9 @@ and, phase by phase, raising on any failure:
 
 1. builds the CUDA kernels from ``ceph_tpu_torch/csrc`` (nvcc, all sources
    at once) and prints the build seconds, ptxas's register report and each
-   kernel's loops with their instruction mix (``testing.sass``);
+   kernel's loops with their instruction mix (``testing.sass``); fails if
+   the lab's unpack kernel (L2) lost its expansion or repack loop (a
+   compiler that folded the planes away would leave a copy);
 2. prints the card (torch's name, nvidia-smi's name and power limit);
 3. holds each kernel against its plain PyTorch version on the card, exact
    (``torch.equal``): the dense kernels at the headline k=8 m=4 encode, a
@@ -17,8 +19,11 @@ and, phase by phase, raising on any failure:
    matrices; the encode-variant kernels at the headline encode, the decode
    matrix, a ragged length, a 32 x 32 matrix at the variants' gate
    (mout*kin = 1024) and, for the byte one, the (B, k, C) batch; the lab's
-   copy kernel at the headline and a ragged length; the grouped kernels on
-   the CLAY k=8 m=4 d=11 repair operator
+   copy kernel at the headline and a ragged length; B1 at each tile of the
+   lab's sweep (headline, ragged, the blocked w=32 matrix); the lab's bit
+   kernels at the headline and ragged shapes (L2 on words, L3 on the lab's
+   bm32 with 0/1 bits and on asymmetric int8 over the whole range, n % 8 !=
+   0 included); the grouped kernels on the CLAY k=8 m=4 d=11 repair operator
    at the headline repair (words and the (B, 176, sc) batch), the CLAY
    k=16 m=4 d=19 operator, a random sparse plan with short groups and the
    pair-padding group, and a ragged length;
@@ -34,17 +39,21 @@ and, phase by phase, raising on any failure:
    round trip with one lost chunk; then, under each of the five encode
    variants, the corpus check and the 64 MiB object round trip, each
    variant's kernel launched and a blocked matrix's apply launching the
-   production kernel B1.  It reads the counts after each path and fails if
-   a kernel was not launched;
+   production kernel B1; then the perf lab
+   (``ceph_tpu_torch.testing.perf_lab``), all 14 experiments through the
+   device-loop timer, each checked bit-identical first.  It reads the
+   counts after each path and fails if a kernel was not launched;
 5. times each kernel and its plain version with CUDA events beside its
    bound: the dense kernels at the jax_rs headline (16384 stripes x 4 KiB,
    k=8 m=4, 64 MiB of data per launch); the grouped kernel at the CLAY
    headline repair (512 stripes x 64 KiB chunks), beside the dense byte
    kernel on the same operator, and the paired kernel at the k=16 repair
    (1024 stripes x 16 KiB chunks); the variant kernels at the headline;
-   the copy kernel beside its bound and ``torch.bitwise_xor``; the entries
-   around them; then the perf lab (``ceph_tpu_torch.testing.perf_lab``),
-   every experiment once, its copy-kernel launches counted;
+   the copy kernel beside its bound and ``torch.bitwise_xor``; B1 at the
+   four tiles; L2 beside ``x.clone()`` and L3 beside ``torch._int_mm``; the
+   entries around them; the lab's roof_copy step once more through the old
+   timer (CUDA events around steps issued from Python), beside the device
+   loop's reading and L1's kernel-alone time;
 6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +63,7 @@ not beside it.
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import time
@@ -161,6 +171,22 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
         for line in sass.report(name):
             log(f"[sass] {line}")
+    # L2 must keep its work: a loop storing the int8 planes and a loop
+    # reading them back (ptxas folding them would leave a copy).
+    unpack = {n: found for n, found in sass.kernel_loops("lab_bits").items()
+              if "unpack_repack_kernel" in n}
+    loop_ops = [ops for found in unpack.values() for _, ops in found]
+    if not (any(ops.get("STS", 0) >= 32 for ops in loop_ops)
+            and any(ops.get("LDS", 0) >= 32 for ops in loop_ops)):
+        raise AssertionError(f"the unpack kernel has no plane expansion "
+                             f"and repack loops: {unpack}")
+    log(f"[sass] L2 unpack_repack_words keeps its expansion loop (>= 32 STS "
+        f"of int8 planes) and its repack loop (>= 32 LDS)")
+    for n, found in sass.kernel_loops("gf2_apply").items():
+        if "gf2_apply_kernel" in n and "WordIO" in n:
+            kind = "production (tile=None)" if "Lb0E" in n else "tiled"
+            log(f"[sass] B1 {kind}: loops of "
+                f"{[length for length, _ in found]} instructions")
 
     # -- 2. the card -------------------------------------------------------
     smi = perf_lab.nvidia_smi_line()
@@ -261,7 +287,60 @@ def main() -> int:
         log(f"[exact] roof_copy_xor {label} -> equal={ok}")
         if not ok:
             raise AssertionError(f"roof_copy_xor != plain version at {label}")
-    del vcases, runs, words, got, ref
+
+    # B1 at each tile of the lab's sweep, and the lab's bit kernels.
+    enc_consts = ck.ShardApply(gen[K:]).consts
+    w32_consts = ck.ShardApply(packet32).consts
+    for label, consts, shape in (
+            ("headline (8, 2^21) words", enc_consts, (K, n_bytes // 4)),
+            ("ragged (8, 1000003) words", enc_consts, (K, 1_000_003)),
+            ("blocked w=32 (128, 65541) words", w32_consts, (128, 65_541))):
+        words = ck.bytes_to_words(rand_u8(shape[:-1] + (shape[-1] * 4,)))
+        ref = ck.gf2_apply_words_plain(consts.plain_bm32(dev), words)
+        for tile in perf_lab.TILES:
+            got = ck.gf2_apply_words(consts, words, tile=tile)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, ref)
+            log(f"[exact] gf2_apply_words tile {tile} {label} -> equal={ok}")
+            if not ok:
+                raise AssertionError(f"B1 at tile {tile} != plain version "
+                                     f"at {label}")
+    errs["unpack_repack_words"] = errs["roof_matmul_s8"] = 0
+    for label, shape in (("headline (8, 2^21) words", (K, n_bytes // 4)),
+                         ("ragged (8, 1000003) words", (K, 1_000_003)),
+                         ("ragged (3, 1001) words", (3, 1001))):
+        words = ck.bytes_to_words(rand_u8(shape[:-1] + (shape[-1] * 4,)))
+        got = perf_lab.unpack_repack_words(words)
+        ref = perf_lab.unpack_repack_words_plain(words)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, ref) and torch.equal(got, words)
+        log(f"[exact] unpack_repack_words {label} -> equal={ok}")
+        if not ok:
+            raise AssertionError(f"unpack_repack_words != plain version at "
+                                 f"{label}")
+    lab_a = torch.from_numpy(perf_lab.lab_bm32()).to(dev)
+    n_bits = n_bytes // 4 // 8                          # the lab's N4 / 8
+
+    def rand_s8(shape) -> torch.Tensor:
+        return torch.from_numpy(rng.integers(-128, 128, shape).astype(
+            np.int8)).to(dev)
+
+    for label, a, b in (
+            ("lab bm32 x 0/1 bits (256, 262144)", lab_a, torch.from_numpy(
+                rng.integers(0, 2, (256, n_bits)).astype(np.int8)).to(dev)),
+            ("asymmetric int8 A x B (256, 262144)", rand_s8((128, 256)),
+             rand_s8((256, n_bits))),
+            ("asymmetric int8, ragged n = 100003", rand_s8((128, 256)),
+             rand_s8((256, 100_003))),
+            ("asymmetric int8, n = 5", rand_s8((128, 256)), rand_s8((256, 5)))):
+        got = perf_lab.roof_matmul_s8(a, b)
+        ref = perf_lab.roof_matmul_s8_plain(a, b)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, ref)
+        log(f"[exact] roof_matmul_s8 {label} -> equal={ok}")
+        if not ok:
+            raise AssertionError(f"roof_matmul_s8 != plain version at {label}")
+    del vcases, runs, words, got, ref, a, b
 
     # The grouped kernels, on the CLAY repair operators probed on the card.
     reg = ErasureCodePluginRegistry()
@@ -522,6 +601,27 @@ def main() -> int:
         main_launches[name] = variant_launches[name]
     ck.set_encode_variant("")
 
+    # -- 4d. the perf lab, counted -------------------------------------------
+    # Every experiment once through its entry, as ``python -m
+    # ceph_tpu_torch.testing.perf_lab`` runs them: checked, then timed by
+    # the device loop.  The path of the lab's kernels (L1-L3).
+    ck.reset_launch_counts()
+    perf_lab.reset_launch_counts()
+    lab = {}
+    for name in perf_lab.EXPERIMENTS:
+        lab[name] = perf_lab.run_experiment(name)
+        log(f"[lab] {json.dumps(lab[name])}")
+    lab_launches = dict(perf_lab.LAUNCHES)
+    log(f"[main path: lab] launches {lab_launches}, {counts()}")
+    for name, n in list(lab_launches.items()) + [
+            (k, counts()[k]) for k in (
+                "gf2_apply_words", "gf2_apply_words_cmp", "gf2_apply_u8",
+                "gf2_apply_words_split2", "gf2_apply_u8_split2",
+                "gf2_apply_grouped")]:
+        if n == 0:
+            raise AssertionError(f"the lab never launched {name}")
+    main_launches.update(lab_launches)
+
     # -- 5. timing -----------------------------------------------------------
     def bound(nbytes, ops):
         """(seconds, "bytes" | "operations"): the larger of bytes over the
@@ -579,12 +679,26 @@ def main() -> int:
     copy_s = 2 * data_bytes / HBM_BYTES_PER_S
     log(f"[bound] copy roof: {2 * data_bytes} B -> {copy_s * 1e6:.2f} us "
         f"(bytes)")
+    # L3 reads the bits and bm32 and writes the int32 product; its ops are
+    # the int8 multiply-adds of the contraction
+    bits_bytes = 256 * n_bits
+    mm_bytes = bits_bytes + 128 * 256 + 4 * 128 * n_bits
+    mm_ops = 2 * 128 * 256 * n_bits
+    mm_s, mm_by = bound(mm_bytes, mm_ops)
+    log(f"[bound] L2 unpack_repack_words: {2 * data_bytes} B -> "
+        f"{copy_s * 1e6:.2f} us (bytes); L3 roof_matmul_s8: {mm_bytes} B, "
+        f"{mm_ops} int8 ops ({mm_ops / INT8_OPS_PER_S * 1e6:.2f} us) -> "
+        f"{mm_s * 1e6:.2f} us ({mm_by})")
     log(f"[bound] CLAY k=8 repair, B3: {b3_bytes} B, {b3_ops} int8 ops -> "
         f"{b3_s * 1e6:.2f} us ({b3_by}); CLAY k=16 repair, B4: {b4_bytes} B, "
         f"{b4_ops} int8 ops -> {b4_s * 1e6:.2f} us ({b4_by})")
 
+    lab_bits = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2, (256, n_bits), np.int8)).to(dev)
+    unpack_out = torch.empty_like(words)
+    mm_out = torch.empty((128, n_bits), dtype=torch.int32, device=dev)
     rows = [
-        # (kernel, label, kernel call, plain call, bound seconds, by)
+        # (kernel, label, kernel call, plain call or None, bound seconds, by)
         ("gf2_apply_words", "encode words", lambda: enc_ap.apply_words(words),
          lambda: ck.gf2_apply_words_plain(enc_ap.consts.plain_bm32(dev),
                                           words), bound_s, bound_by),
@@ -627,6 +741,19 @@ def main() -> int:
         ("roof_copy_xor", "headline (8, 2^21) words",
          lambda: perf_lab.roof_copy_xor(words),
          lambda: perf_lab.roof_copy_xor_plain(words), copy_s, "bytes"),
+        ("unpack_repack_words", "headline (8, 2^21) words",
+         lambda: perf_lab.unpack_repack_words(words, out=unpack_out),
+         lambda: perf_lab.unpack_repack_words_plain(words), copy_s, "bytes"),
+        ("roof_matmul_s8", "lab bm32 x 0/1 bits (256, 262144)",
+         lambda: perf_lab.roof_matmul_s8(lab_a, lab_bits, out=mm_out),
+         lambda: perf_lab.roof_matmul_s8_plain(lab_a, lab_bits), mm_s,
+         mm_by),
+    ] + [
+        ("gf2_apply_words", f"encode words, tile {tile}",
+         functools.partial(ck.gf2_apply_words, enc_ap.consts, words,
+                           tile=tile), None, bound_s, bound_by)
+        for tile in perf_lab.TILES
+    ] + [
         ("gf2_apply_grouped", "CLAY k=8 repair, (176, N) bytes",
          lambda: ck.gf2_apply_grouped(plan8, shard8),
          lambda: ck.gf2_apply_grouped_plain(plan8, shard8), b3_s, b3_by),
@@ -645,6 +772,14 @@ def main() -> int:
     times = {}
     library = {}
     for name, label, kern, plain, b_s, b_by in rows:
+        if plain is None:           # a second launch shape of a kernel
+            kern_s, kern_s2 = time_it(kern), time_it(kern)
+            k_s = min(kern_s, kern_s2)
+            log(f"[time] {name} {label}: {k_s * 1e6:.2f} us (runs "
+                f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
+                f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
+                f"bound; main-path launches {main_launches[name]}")
+            continue
         plain_s = time_it(plain, iterations=2, runs=3)
         kern_s = time_it(kern)
         kern_s2 = time_it(kern)
@@ -655,7 +790,7 @@ def main() -> int:
             f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
             f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
             f"bound; plain {p_s * 1e3:.3f} ms; main-path launches "
-            f"{main_launches.get(name, 'counted in the lab path')}")
+            f"{main_launches[name]}")
     # L1's yardstick: one PyTorch call computing the same function.
     xor_s = min(time_it(lambda: torch.bitwise_xor(words, 1)),
                 time_it(lambda: torch.bitwise_xor(words, 1)))
@@ -664,6 +799,34 @@ def main() -> int:
         f"{xor_s * 1e6:.2f} us = {100 * copy_s / xor_s:.1f}% of bound; "
         f"measured copy ceiling {2 * data_bytes / times['roof_copy_xor'][0] / 1e12:.3f} "
         f"TB/s (L1) against the data sheet's {HBM_BYTES_PER_S / 1e12:.2f}")
+    # L2's yardstick: x.clone(), the one PyTorch call computing its
+    # function (a copy).  L3's: torch._int_mm, int8 x int8 -> int32 through
+    # cuBLASLt, on B as it lies if it takes that layout, else on a
+    # column-major copy of B made outside the timed call.
+    clone_s = min(time_it(lambda: words.clone()),
+                  time_it(lambda: words.clone()))
+    library["unpack_repack_words"] = clone_s
+    log(f"[time] words.clone(), L2's library call: {clone_s * 1e6:.2f} us "
+        f"= {100 * copy_s / clone_s:.1f}% of bound")
+    try:
+        int_mm = torch._int_mm(lab_a, lab_bits)
+        mm_layout = "B (256, n) row-major, as the kernel reads it"
+        mm_arg = lab_bits
+    except RuntimeError as e:
+        log(f"[time] torch._int_mm refuses B row-major ({e}); timing it on "
+            f"a column-major copy of B")
+        mm_arg = lab_bits.t().contiguous().t()
+        int_mm = torch._int_mm(lab_a, mm_arg)
+        mm_layout = "B (256, n) column-major (n-major storage)"
+    torch.cuda.synchronize()
+    if not torch.equal(int_mm, mm_out):
+        raise AssertionError("torch._int_mm disagrees with roof_matmul_s8")
+    int_mm_s = min(time_it(lambda: torch._int_mm(lab_a, mm_arg)),
+                   time_it(lambda: torch._int_mm(lab_a, mm_arg)))
+    library["roof_matmul_s8"] = int_mm_s
+    log(f"[time] torch._int_mm(A, B), L3's library call on {mm_layout}: "
+        f"{int_mm_s * 1e6:.2f} us = {100 * mm_s / int_mm_s:.1f}% of bound")
+    del int_mm, mm_arg
     # Host time per call: the host clock over back-to-back calls with no
     # synchronise between them, i.e. what one call costs to enqueue.  A
     # step whose enqueue time reaches its device time is host-bound.
@@ -740,17 +903,23 @@ def main() -> int:
     for label, sec in walls.items():
         log(f"[wall] {label}: {sec:.3f} s")
 
-    # The perf lab, every experiment once through its entry, as
-    # ``python -m ceph_tpu_torch.testing.perf_lab`` runs them: the path that
-    # launches the copy kernel (L1), its count reset before and read after.
-    perf_lab.reset_launch_counts()
-    for name in perf_lab.EXPERIMENTS:
-        log(f"[lab] {json.dumps(perf_lab.run_experiment(name))}")
-    lab_launches = dict(perf_lab.LAUNCHES)
-    log(f"[main path: lab] launches {lab_launches}")
-    if lab_launches["roof_copy_xor"] == 0:
-        raise AssertionError("the lab never launched roof_copy_xor")
-    main_launches.update(lab_launches)
+    # The repair of the lab's timer: its roof_copy step through the old
+    # timer (CUDA events around steps issued from Python, host-bound for a
+    # kernel this short) beside the device loop's reading and L1 alone.
+    _, lab_words = perf_lab._data(dev)
+    copy_out = torch.empty_like(lab_words)
+    old_step = perf_lab.carry_step(
+        lambda w: perf_lab.roof_copy_xor(w, out=copy_out))
+    old_s = time_it(lambda: old_step(lab_words))
+    loop_s = lab["roof_copy"]["sec"]
+    l1_s = times["roof_copy_xor"][0]
+    log(f"[lab] roof_copy step: device loop {loop_s * 1e6:.2f} us "
+        f"({100 * (loop_s / l1_s - 1):+.1f}% against L1 alone, "
+        f"{l1_s * 1e6:.2f} us); old timer {old_s * 1e6:.2f} us")
+    for name in ("unpack_only", "roof_matmul"):
+        log(f"[lab] {name} step: device loop "
+            f"{lab[name]['sec'] * 1e6:.2f} us")
+    del lab_words, copy_out
 
     # -- 6. result lines ------------------------------------------------------
     replaces = {
@@ -762,6 +931,8 @@ def main() -> int:
         "gf2_apply_grouped": "ceph_tpu/ec/pallas_kernels.py:429",
         "gf2_apply_grouped_paired": "ceph_tpu/ec/pallas_kernels.py:495",
         "roof_copy_xor": "ceph_tpu/testing/perf_lab.py:150",
+        "unpack_repack_words": "ceph_tpu/testing/perf_lab.py:189",
+        "roof_matmul_s8": "ceph_tpu/testing/perf_lab.py:235",
     }
     sources = {
         "gf2_apply_words": "ceph_tpu_torch/csrc/gf2_apply.cu",
@@ -772,6 +943,8 @@ def main() -> int:
         "gf2_apply_grouped": "ceph_tpu_torch/csrc/gf2_grouped.cu",
         "gf2_apply_grouped_paired": "ceph_tpu_torch/csrc/gf2_grouped.cu",
         "roof_copy_xor": "ceph_tpu_torch/csrc/lab_copy.cu",
+        "unpack_repack_words": "ceph_tpu_torch/csrc/lab_bits.cu",
+        "roof_matmul_s8": "ceph_tpu_torch/csrc/lab_bits.cu",
     }
     kernels = []
     for name in list(ck.LAUNCHES) + list(perf_lab.LAUNCHES):

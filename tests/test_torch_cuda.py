@@ -189,3 +189,79 @@ def test_roof_copy_kernel_matches_plain(cuda, shape):
     got = perf_lab.roof_copy_xor(words)
     assert perf_lab.LAUNCHES["roof_copy_xor"] == before + 1
     assert torch.equal(got, perf_lab.roof_copy_xor_plain(words))
+
+
+def _int32(shape, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("tile", [2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("case", ["encode", "ragged", "blocked_w32"])
+def test_tiled_words_kernel_matches_plain(cuda, tile, case):
+    """B1 at each tile of the lab's sweep: the encode matrix at a length
+    that is a whole number of tiles and a ragged one, and a blocked matrix
+    (kin = 128 > one table chunk) that re-stages per column group."""
+    if case == "blocked_w32":
+        ec = ErasureCodeJaxRS({"k": "4", "m": "2",
+                               "technique": "reed_sol_van", "w": "32"},
+                              device=cuda)
+        consts = ck.ShardApply(ec.full_bm[4 * 32:]).consts
+        n4 = 3 * tile + 5
+    else:
+        consts = ck.ShardApply(
+            generator_matrix("reed_sol_van", 8, 4)[8:]).consts
+        n4 = 4 * tile if case == "encode" else 3 * tile + 1001
+    words = _int32((consts.kin, n4), tile, cuda)
+    before = ck.LAUNCHES["gf2_apply_words"]
+    got = ck.gf2_apply_words(consts, words, tile=tile)
+    assert ck.LAUNCHES["gf2_apply_words"] == before + 1
+    assert torch.equal(got, ck.gf2_apply_words(consts, words))
+    assert torch.equal(got, ck.gf2_apply_words_plain(
+        consts.plain_bm32(cuda), words))
+
+
+@pytest.mark.parametrize("shape", [(8, 1 << 16), (8, 1001), (3, 257),
+                                   (13, 4096), (1, 3)])
+def test_unpack_repack_kernel_matches_plain(cuda, shape):
+    from ceph_tpu_torch.testing import perf_lab
+
+    words = _int32(shape, 6, cuda)
+    before = perf_lab.LAUNCHES["unpack_repack_words"]
+    got = perf_lab.unpack_repack_words(words)
+    assert perf_lab.LAUNCHES["unpack_repack_words"] == before + 1
+    assert torch.equal(got, perf_lab.unpack_repack_words_plain(words))
+    assert torch.equal(got, words)
+
+
+@pytest.mark.parametrize("n", [4096, 1000, 1003, 64, 5])
+def test_roof_matmul_kernel_matches_plain(cuda, n):
+    """Asymmetric int8 over the whole range (a transposed fragment would
+    not pass), at whole and ragged tiles, n % 8 != 0 included."""
+    from ceph_tpu_torch.testing import perf_lab
+
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.integers(-128, 128, (128, 256)).astype(
+        np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(-128, 128, (256, n)).astype(
+        np.int8)).to(cuda)
+    before = perf_lab.LAUNCHES["roof_matmul_s8"]
+    got = perf_lab.roof_matmul_s8(a, b)
+    assert perf_lab.LAUNCHES["roof_matmul_s8"] == before + 1
+    assert torch.equal(got, perf_lab.roof_matmul_s8_plain(a, b))
+
+
+def test_device_loop_times_the_card_and_counts_one_launch(cuda):
+    """The lab's roof_copy step through the device-loop timer: a positive
+    time, and only the eager warm-up counted as a launch (the captured
+    calls launch nothing; the replays do not pass through the wrapper)."""
+    from ceph_tpu_torch.ec import benchmark
+    from ceph_tpu_torch.testing import perf_lab
+
+    words = _int32((8, 1 << 16), 8, cuda)
+    out = torch.empty_like(words)
+    step = perf_lab.carry_step(lambda w: perf_lab.roof_copy_xor(w, out=out))
+    before = perf_lab.LAUNCHES["roof_copy_xor"]
+    sec = benchmark.device_seconds_per_iter(step, words, lo=8, hi=40)
+    assert sec > 0
+    assert perf_lab.LAUNCHES["roof_copy_xor"] == before + 1

@@ -78,13 +78,14 @@ assert ec._engine.grouped_applier(R) is not None
 
 
 # The port's perf lab: its experiments on the CPU (plain versions) and its
-# copy kernel's wrapper.
+# kernels' wrappers (lab_copy, lab_bits, B1's tile).
 BLOCKED_LAB_RUN = BLOCKER + r"""
 import os
 os.environ["PERF_LAB_STRIPES"] = "64"
 import ceph_tpu_torch.testing
 from ceph_tpu_torch.testing import perf_lab
-for name in ("roof_copy", "enc_cmp_expand", "enc_u8_split2"):
+for name in ("roof_copy", "enc_cmp_expand", "enc_u8_split2", "unpack_only",
+             "roof_matmul", "enc_tile_4096"):
     assert perf_lab.run_experiment(name, device="cpu")["bit_identical"]
 """ + CHECK
 
