@@ -12,19 +12,33 @@
 //       row-major; B k-major, n contiguous, the JAX `bits` layout), with
 //       no unpack and no pack.
 //
-// unpack_repack_words.  A block owns 256 words of 8 rows.  It materialises
-// the 0/1 planes as int8 in shared memory, laid out (row*32 + bit, column)
-// with a 256-byte pitch: the (k, n) layout of roof_matmul_s8's B operand.
-// 8 x 32 x 256 bytes = 64 KiB, dynamic shared memory past the 48 KiB
-// default.  A thread takes a (row, 4-word group): one 16-byte load, a 4x4
-// byte transpose (8 prmt) so that word b holds byte b of the 4 columns,
-// then plane 8b+p = (word_b >> p) & 0x01010101 is one 32-bit store of four
-// int8 planes.  After a barrier the planes are read back by the thread of
-// the warp 32 lanes away (so the compiler cannot fold a thread's planes
-// back into its own words, which would leave a copy), OR-ed with their
-// shifts into 4 words, transposed back and stored.  Both loops stay loops
-// (unroll 1), so testing/sass.py shows the expansion (32 STS) and the
-// repack (32 LDS) bodies.
+// unpack_repack_words.  A block of 128 threads owns a tile of 8 rows x 256
+// words and materialises its 0/1 planes as int8 in shared memory, laid out
+// (row*32 + bit, column) with a 256-byte pitch: the (k, n) layout of
+// roof_matmul_s8's B operand.  8 x 32 x 256 bytes = 64 KiB, plus 8 KiB to
+// stage the repacked words: dynamic shared memory past the 48 KiB default,
+// so 3 blocks (12 warps) fit an SM.  A thread owns a unit of 16 consecutive
+// words of one row: four 16-byte loads and four 4x4 byte transposes (prmt)
+// so that t[g][b] holds byte b of words 4g..4g+3.  A plane then covers the
+// unit's 16 columns, and each of the 32 planes is one 16-byte store: plane
+// 8b+p = (t[g][b] >> p) & 0x01010101 for g = 0..3, four shift+AND pairs.
+// After a barrier each unit is read back by the thread 32 lanes away
+// (another warp, so the compiler cannot fold a thread's planes back into its
+// own words, which would leave a copy), one 16-byte load per plane,
+// repacked by shift-add (the bits are disjoint, so acc + (plane << p) is
+// one multiply-add), transposed back and written to the staging buffer;
+// after a second barrier each warp stores 512 contiguous bytes per
+// instruction.  Stored straight from the unit, a warp's 16-byte stores
+// would lie 64 bytes apart, each half a 32-byte sector, and on an H100
+// that tripled the kernel's time; the loads at that stride cost little.
+// The two loops are 784 SASS instructions per 16 words (the edge path's
+// included), 49 per word, against 76 for the 4-word units it replaced; the
+// planes cost 64 bytes of shared-memory traffic per word either way.  The grid is persistent (one block per resident slot, walking
+// tiles), and a thread's loads of its next tile's unit are issued in the
+// expansion, so they are in flight under the repack.  Only a tile on the
+// ragged edge checks bounds per word, and stores its units directly.  Both
+// loops stay loops (unroll 1, a runtime unit count), so testing/sass.py
+// shows the expansion (32 STS) and the repack (32 LDS) bodies.
 //
 // roof_matmul_s8.  mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 on the
 // tensor cores, the simple form (wgmma/TMA are later work).  A block of 8
@@ -78,97 +92,171 @@ bool aligned16(const void* p) {
 
 // -- L2: unpack_repack_words ------------------------------------------------
 
-constexpr int UB_THREADS = 256;
-constexpr int UB_ROWS = 8;                          // rows per block
-constexpr int UB_WORDS = 256;                       // words per row per block
-constexpr int UB_GROUPS = UB_WORDS / 4;             // 16-byte groups per row
-constexpr int UB_UNITS = UB_ROWS * UB_GROUPS;       // (row, group) units
-constexpr int UB_SMEM = UB_ROWS * 32 * UB_WORDS;    // int8 planes: 64 KiB
+constexpr int UB_THREADS = 128;
+constexpr int UB_ROWS = 8;                          // rows per tile
+constexpr int UB_WORDS = 256;                       // words per row per tile
+constexpr int UNIT_WORDS = 16;                      // words per thread
+constexpr int UB_GROUPS = UB_WORDS / UNIT_WORDS;    // units per row: 16
+constexpr int UB_UNITS = UB_ROWS * UB_GROUPS;       // units per tile: 128
+constexpr int PLANE_BYTES = UB_ROWS * 32 * UB_WORDS;  // int8 planes: 64 KiB
+constexpr int PLANE_CHUNKS = UB_WORDS / 16;         // 16-byte chunks a plane
+constexpr int STAGE_CHUNKS = UB_ROWS * UB_WORDS / 4;  // the tile's words: 8 KiB
+constexpr int UB_SMEM = PLANE_BYTES + 16 * STAGE_CHUNKS;
 
-// Unit u of the block at (r0, c0): row r0 + u / UB_GROUPS, words
-// c0 + 4 * (u % UB_GROUPS) .. +3 of a contiguous (rows, n4) array.
-struct Units {
+static_assert(UB_UNITS == UB_THREADS, "one unit per thread and tile");
+
+// The (rows, n4) array in tiles of UB_ROWS x UB_WORDS: the tile at (r0, c0)
+// holds rows r0.. and words c0.. of each.
+struct Tiles {
   const uint32_t* in;
   uint32_t* out;
   int rows;
   long long n4;
   bool vec_ok;  // 16-byte aligned bases and n4 % 4 == 0
 
-  __device__ __forceinline__ void load(int r0, long long c0, int u,
-                                       uint32_t (&w)[4]) const {
+  // Whole 16-byte loads and stores with no check per word.
+  __device__ __forceinline__ bool interior(int r0, long long c0) const {
+    return vec_ok && r0 + UB_ROWS <= rows && c0 + UB_WORDS <= n4;
+  }
+
+  // Unit u of the tile at (r0, c0): row r0 + u / UB_GROUPS, words
+  // c0 + UNIT_WORDS * (u % UB_GROUPS) .. +15; zero past the edge.
+  __device__ __forceinline__ void load(int r0, long long c0, bool whole, int u,
+                                       uint32_t (&w)[UNIT_WORDS]) const {
     const int row = r0 + u / UB_GROUPS;
-    const long long w0 = c0 + 4 * (u % UB_GROUPS);
+    const long long w0 = c0 + UNIT_WORDS * (u % UB_GROUPS);
     const uint32_t* p = in + row * n4 + w0;
-    if (row < rows && vec_ok && w0 + 4 <= n4) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    if (whole) {
+#pragma unroll
+      for (int q = 0; q < UNIT_WORDS / 4; ++q) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + q);
+        w[4 * q] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
       return;
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < UNIT_WORDS; ++e)
       w[e] = (row < rows && w0 + e < n4) ? __ldg(p + e) : 0u;
   }
 
-  __device__ __forceinline__ void store(int r0, long long c0, int u,
-                                        const uint32_t (&w)[4]) const {
+  // The edge tile's store of unit u, word by word (whole tiles store
+  // through the staging buffer).
+  __device__ __forceinline__ void store_edge(int r0, long long c0, int u,
+                                             const uint32_t (&w)[UNIT_WORDS]) const {
     const int row = r0 + u / UB_GROUPS;
-    const long long w0 = c0 + 4 * (u % UB_GROUPS);
-    if (row >= rows) return;
+    const long long w0 = c0 + UNIT_WORDS * (u % UB_GROUPS);
     uint32_t* p = out + row * n4 + w0;
-    if (vec_ok && w0 + 4 <= n4) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-      return;
-    }
+    if (row >= rows) return;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < UNIT_WORDS; ++e)
       if (w0 + e < n4) p[e] = w[e];
   }
 };
 
+// The first 16-byte chunk of unit u's 16 columns in plane (row, bit 0); the
+// plane of bit j is PLANE_CHUNKS * j chunks on.
+__device__ __forceinline__ int unit_chunk(int u) {
+  return (u / UB_GROUPS) * 32 * PLANE_CHUNKS + u % UB_GROUPS;
+}
+
+// Where the staging buffer keeps the tile's 16-byte chunk k (row-major: row
+// k / 64, words 4 * (k % 64)..).  Unit u's four chunks 4u..4u+3 are
+// rotated by (u >> 1) & 3 within their 64 bytes, so that both the repack's
+// stores (lane l: chunk 4u + q) and the coalesced reads (lane l: chunk
+// 32m + l) of 8 lanes hit 8 different 16-byte bank groups.
+__device__ __forceinline__ int stage_chunk(int k) {
+  const int u = k >> 2;
+  return (u << 2) | (((k & 3) + (u >> 1)) & 3);
+}
+
+// Row block blockIdx.y; column tiles blockIdx.x, + gridDim.x, ... below
+// col_tiles.  `units` is UB_UNITS, passed at run time so that both loops
+// stay loops.
 __global__ void __launch_bounds__(UB_THREADS)
-unpack_repack_kernel(Units io) {
-  // int8 plane (row*32 + bit, column) at byte (row*32 + bit)*256 + column,
-  // addressed here as words: [(row*32 + bit) * UB_GROUPS + group]
-  extern __shared__ uint32_t s_planes[];
-  const long long c0 = (long long)blockIdx.x * UB_WORDS;
+unpack_repack_kernel(Tiles io, long long col_tiles, int units) {
+  // int8 plane (row*32 + bit, column) at byte (row*32 + bit)*256 + column
+  extern __shared__ uint4 s_planes[];
+  uint4* s_stage = s_planes + PLANE_BYTES / 16;  // the repacked words
   const int r0 = blockIdx.y * UB_ROWS;
-
-  // Expansion: units tid and tid + 256, the second's load issued before
-  // the first unit's planes are written.
-  uint32_t next[4];
-  io.load(r0, c0, threadIdx.x, next);
+  long long c0 = (long long)blockIdx.x * UB_WORDS;
+  const long long stride = (long long)gridDim.x * UB_WORDS;
+  const long long end = col_tiles * UB_WORDS;
+  uint32_t next[UNIT_WORDS];
+  if (c0 < end) io.load(r0, c0, io.interior(r0, c0), threadIdx.x, next);
+  for (; c0 < end; c0 += stride) {
+    const bool whole = io.interior(r0, c0);
+    const long long c1 = c0 + stride;  // this block's next tile
+    const bool whole1 = io.interior(r0, c1);
+    __syncthreads();  // the previous tile's planes are all read
+    // Expansion; the next tile's unit is loaded before these planes are
+    // written, and lands under the repack.
 #pragma unroll 1
-  for (int u = threadIdx.x; u < UB_UNITS; u += UB_THREADS) {
-    const uint32_t w[4] = {next[0], next[1], next[2], next[3]};
-    if (u + UB_THREADS < UB_UNITS) io.load(r0, c0, u + UB_THREADS, next);
-    uint32_t t[4];
-    transpose4(w, t);  // t[b]: byte b of the four words
-    uint32_t* planes = s_planes + (u / UB_GROUPS) * 32 * UB_GROUPS +
-                       u % UB_GROUPS;
+    for (int u = threadIdx.x; u < units; u += UB_THREADS) {
+      uint32_t w[UNIT_WORDS];
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
+      for (int e = 0; e < UNIT_WORDS; ++e) w[e] = next[e];
+      if (c1 < end) io.load(r0, c1, whole1, u, next);
+      uint32_t t[4][4];  // t[g][b]: byte b of words 4g..4g+3
 #pragma unroll
-      for (int p = 0; p < 8; ++p)
-        planes[(8 * b + p) * UB_GROUPS] = (t[b] >> p) & 0x01010101u;
-  }
-  __syncthreads();
-
-  // Repack, each unit by the thread 32 lanes from the one that expanded it.
-#pragma unroll 1
-  for (int u = threadIdx.x ^ 32; u < UB_UNITS; u += UB_THREADS) {
-    const uint32_t* planes = s_planes + (u / UB_GROUPS) * 32 * UB_GROUPS +
-                             u % UB_GROUPS;
-    uint32_t t[4];
+      for (int g = 0; g < 4; ++g) {
+        const uint32_t q[4] = {w[4 * g], w[4 * g + 1], w[4 * g + 2],
+                               w[4 * g + 3]};
+        transpose4(q, t[g]);
+      }
+      uint4* planes = s_planes + unit_chunk(u);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      uint32_t acc = 0u;
+      for (int b = 0; b < 4; ++b)
 #pragma unroll
-      for (int p = 0; p < 8; ++p) acc |= planes[(8 * b + p) * UB_GROUPS] << p;
-      t[b] = acc;
+        for (int p = 0; p < 8; ++p)
+          planes[(8 * b + p) * PLANE_CHUNKS] = make_uint4(
+              (t[0][b] >> p) & 0x01010101u, (t[1][b] >> p) & 0x01010101u,
+              (t[2][b] >> p) & 0x01010101u, (t[3][b] >> p) & 0x01010101u);
     }
-    uint32_t w[4];
-    transpose4(t, w);
-    io.store(r0, c0, u, w);
+    __syncthreads();
+
+    // Repack, each unit by the thread 32 lanes from the one that expanded it.
+#pragma unroll 1
+    for (int u = threadIdx.x ^ 32; u < units; u += UB_THREADS) {
+      const uint4* planes = s_planes + unit_chunk(u);
+      uint32_t t[4][4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        uint32_t acc[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          const uint4 v = planes[(8 * b + p) * PLANE_CHUNKS];
+          acc[0] += v.x << p; acc[1] += v.y << p;
+          acc[2] += v.z << p; acc[3] += v.w << p;
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) t[g][b] = acc[g];
+      }
+      uint32_t w[UNIT_WORDS];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        uint32_t q[4];
+        transpose4(t[g], q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[4 * g + e] = q[e];
+      }
+      if (whole) {  // staged, then stored a whole row segment per warp
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          s_stage[stage_chunk(4 * u + q)] =
+              make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+      } else {
+        io.store_edge(r0, c0, u, w);
+      }
+    }
+    if (whole) {
+      __syncthreads();
+#pragma unroll
+      for (int k = threadIdx.x; k < STAGE_CHUNKS; k += UB_THREADS)
+        reinterpret_cast<uint4*>(
+            io.out + (r0 + k / (UB_WORDS / 4)) * io.n4 + c0)[k % (UB_WORDS / 4)] =
+            s_stage[stage_chunk(k)];
+    }
   }
 }
 
@@ -307,19 +395,27 @@ roof_matmul_s8_kernel(const uint32_t* __restrict__ a,  // (128, 64) words
 extern "C" int unpack_repack_words(const void* in, void* out, int rows,
                                    long long n4, void* stream) {
   if (rows <= 0 || n4 <= 0) return 0;
-  const long long blocks = (n4 + UB_WORDS - 1) / UB_WORDS;
-  const int row_blocks = (rows + UB_ROWS - 1) / UB_ROWS;
-  if (blocks > 0x7fffffffLL || row_blocks > 65535)
-    return int(cudaErrorInvalidConfiguration);
-  static bool smem_raised = false;
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static long long grid_cap = 0;  // resident blocks on the device
+  if (grid_cap == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
         unpack_repack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         UB_SMEM);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, unpack_repack_kernel, UB_THREADS, UB_SMEM);
     if (err != cudaSuccess) return int(err);
-    smem_raised = true;
+    grid_cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
   }
-  Units io;
+  const long long col_tiles = (n4 + UB_WORDS - 1) / UB_WORDS;
+  const long long row_blocks = (rows + UB_ROWS - 1) / UB_ROWS;
+  if (row_blocks > 65535) return int(cudaErrorInvalidConfiguration);
+  long long blocks = grid_cap / row_blocks;
+  blocks = blocks < 1 ? 1 : blocks < col_tiles ? blocks : col_tiles;
+  Tiles io;
   io.in = static_cast<const uint32_t*>(in);
   io.out = static_cast<uint32_t*>(out);
   io.rows = rows;
@@ -328,7 +424,8 @@ extern "C" int unpack_repack_words(const void* in, void* out, int rows,
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(row_blocks));
   unpack_repack_kernel<<<grid, UB_THREADS, UB_SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(io);
+                         static_cast<cudaStream_t>(stream)>>>(io, col_tiles,
+                                                              UB_UNITS);
   return int(cudaGetLastError());
 }
 

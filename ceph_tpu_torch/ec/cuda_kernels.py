@@ -7,7 +7,9 @@ and recovery of the jax_rs codecs:
 - ``gf2_apply_words``: (kin, N4) int32 lane words -> (mout, N4) int32.
   Replaces ``_kernel`` (pallas_kernels.py:96-117, launched by
   ``_pallas_apply_words`` :120-141), blocked contraction included; its
-  ``tile`` argument is the launch's (words of a row per block).
+  ``tile`` argument is the launch's (words of a row per block).  It looks
+  up GF(2)-linear byte tables of three bit fields with ``prmt``
+  (``field_tables``).
 - ``gf2_apply_u8``: (kin, N) uint8 byte streams, or a (B, kin, C) stripe
   batch, -> (mout, N) / (B, mout, C) uint8.  Replaces ``_kernel_u8``
   (:199-213, launched by ``_pallas_apply_u8_variant`` :267-288), the
@@ -114,13 +116,16 @@ _MAX_MATRIX_BYTES = 1 << 20
 def set_encode_variant(name: str) -> None:
     """Select the formulation behind ``ShardApply``'s entries.
 
-    "auto" resolves at set time to enc_u8_expand when a CUDA device is
-    present, and to "" elsewhere — as the JAX package resolves it to
-    enc_u8_expand on a TPU backend.
+    "auto" resolves at set time to the formulation measured fastest on the
+    card, and to "" elsewhere.  The JAX package resolves it to
+    enc_u8_expand on a TPU; on an H100 at the jax_rs headline encode
+    (chip_smoke.py, H100 80GB HBM3 at 700 W) B1's field tables take 45.16
+    us, B5a (enc_cmp_expand) 56.60, B5b 63.51, B5c 76.20 and B2
+    (enc_u8_expand) 79.92, so "auto" is "" there too.
     """
     global _encode_variant
     if name == "auto":
-        name = "enc_u8_expand" if torch.cuda.is_available() else ""
+        name = ""
     if name not in ENCODE_VARIANTS:
         raise ValueError(
             f"unknown encode variant {name!r}; one of {ENCODE_VARIANTS}"
@@ -198,12 +203,51 @@ def column_table(bitmatrix: np.ndarray) -> np.ndarray:
     )
 
 
+# The three bit fields of an input byte that index B1's byte tables: bits
+# 0-2, 3-5 and 6-7 (shift, width).  At most 3 bits each, so a field never
+# sets the sign-replicate bit of a prmt selector nibble.
+FIELDS = ((0, 3), (3, 3), (6, 2))
+
+
+def _byte_maps(bitmatrix: np.ndarray) -> np.ndarray:
+    """(8m, 8k) GF(2) bitmatrix -> (m, k, 256) uint8: entry [r, c, x] is
+    block (r, c) applied to the byte x, bit i = XOR_j BM[8r+i, 8c+j] *
+    bit j of x."""
+    B = np.asarray(bitmatrix, np.uint8)
+    m8, k8 = B.shape
+    B = B.reshape(m8 // 8, 8, k8 // 8, 8)               # (r, i, c, j)
+    x = np.arange(256, dtype=np.uint32)
+    xbits = ((x[:, None] >> np.arange(8, dtype=np.uint32)) & 1).astype(
+        np.uint8)                                       # (x, j)
+    out = np.einsum("ricj,xj->rcxi", B.astype(np.int64),
+                    xbits.astype(np.int64)) & 1         # (r, c, x, i)
+    return (out << np.arange(8)).sum(-1).astype(np.uint8)
+
+
+def field_tables(bitmatrix: np.ndarray) -> np.ndarray:
+    """(8m, 8k) GF(2) bitmatrix -> (m, k, 5) uint32 tables of B1
+    (csrc/gf2_apply.cu).
+
+    Block (r, c) of the bitmatrix is a linear map M on bytes, so M(x) =
+    M(f0) ^ M(f1 << 3) ^ M(f2 << 6) over the fields of ``FIELDS``.  Words
+    0-1 hold T0[v] = M(v) for v = 0..7 as bytes (T0[v] in byte v of the
+    pair, little-endian), words 2-3 T1[v] = M(v << 3), word 4 T2[v] =
+    M(v << 6) for v = 0..3: the byte pools prmt selects from."""
+    maps = _byte_maps(bitmatrix)                        # (m, k, 256)
+    cols = []
+    for shift, width in FIELDS:
+        entries = maps[:, :, np.arange(1 << width) << shift]
+        cols.append(np.ascontiguousarray(entries).view("<u4"))
+    return np.ascontiguousarray(np.concatenate(cols, axis=2))
+
+
 class GF2Constants:
     """Device constants of one GF(2) bitmatrix, cached per device.
 
-    The table-cache role of ErasureCodeIsaTableCache: the kernel table on
-    a CUDA device, the float32 bitmatrices the plain versions contract
-    with on the CPU."""
+    The table-cache role of ErasureCodeIsaTableCache: the kernel tables on
+    a CUDA device (B1's field tables, the other kernels' column table),
+    the float32 bitmatrices the plain versions contract with on the
+    CPU."""
 
     def __init__(self, bitmatrix: np.ndarray):
         self.bitmatrix = np.ascontiguousarray(np.asarray(bitmatrix, np.uint8))
@@ -226,6 +270,12 @@ class GF2Constants:
         """(mout, kin, 8) kernel table as int32 (same bits as uint32)."""
         return self._cached("table", device, lambda: torch.from_numpy(
             column_table(self.bitmatrix).view(np.int32)))
+
+    def fields(self, device: torch.device) -> torch.Tensor:
+        """(mout, kin, 5) field tables of B1 as int32 (same bits as
+        uint32)."""
+        return self._cached("fields", device, lambda: torch.from_numpy(
+            field_tables(self.bitmatrix).view(np.int32)))
 
     def plain_bm(self, device: torch.device) -> torch.Tensor:
         """(8m, 8k) float32 0/1 bitmatrix for the byte plain version."""
@@ -426,11 +476,12 @@ def _require_unblocked(name: str, consts: GF2Constants) -> None:
 
 def _words_launch(name: str, source: str, plain, consts: GF2Constants,
                   words: torch.Tensor, out: torch.Tensor | None,
-                  tile: int | None = None) -> torch.Tensor:
+                  tile: int | None = None,
+                  tables=GF2Constants.table) -> torch.Tensor:
     """Shared body of the word-layout wrappers: (kin, N4) int32 ->
     (mout, N4) int32 by the kernel ``name`` on a CUDA tensor (through its
-    ``<name>_tiled`` entry when given a tile), by ``plain`` on a CPU
-    tensor."""
+    ``<name>_tiled`` entry when given a tile), with ``tables(consts,
+    device)`` as its constants; by ``plain`` on a CPU tensor."""
     if words.dtype != torch.int32 or words.ndim != 2:
         raise TypeError(f"expected 2-D int32 words, got {words.dtype} "
                         f"{tuple(words.shape)}")
@@ -452,7 +503,7 @@ def _words_launch(name: str, source: str, plain, consts: GF2Constants,
     if (out.shape != (consts.mout, n4) or out.dtype != torch.int32
             or out.device != words.device or out.stride(1) != 1):
         raise ValueError(f"{name}: bad output tensor")
-    table = consts.table(words.device)
+    table = tables(consts, words.device)
     args = [table.data_ptr(), words.data_ptr(), out.data_ptr(), consts.kin,
             consts.mout, n4, words.stride(0), out.stride(0)]
     with torch.cuda.device(words.device):
@@ -538,7 +589,8 @@ def gf2_apply_words(consts: GF2Constants, words: torch.Tensor,
     a CPU tensor, at any tile."""
     _check_tile(tile)
     return _words_launch("gf2_apply_words", KERNEL_SOURCE,
-                         gf2_apply_words_plain, consts, words, out, tile)
+                         gf2_apply_words_plain, consts, words, out, tile,
+                         GF2Constants.fields)
 
 
 def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,

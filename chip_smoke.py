@@ -11,7 +11,9 @@ and, phase by phase, raising on any failure:
    at once) and prints the build seconds, ptxas's register report and each
    kernel's loops with their instruction mix (``testing.sass``); fails if
    the lab's unpack kernel (L2) lost its expansion or repack loop (a
-   compiler that folded the planes away would leave a copy);
+   compiler that folded the planes away would leave a copy), or if B1's
+   field-table loop takes 70 or more instructions per input word (the
+   bit-spread design it replaced);
 2. prints the card (torch's name, nvidia-smi's name and power limit);
 3. holds each kernel against its plain PyTorch version on the card, exact
    (``torch.equal``): the dense kernels at the headline k=8 m=4 encode, a
@@ -50,8 +52,8 @@ and, phase by phase, raising on any failure:
    kernel on the same operator, and the paired kernel at the k=16 repair
    (1024 stripes x 16 KiB chunks); the variant kernels at the headline;
    the copy kernel beside its bound and ``torch.bitwise_xor``; B1 at the
-   four tiles; L2 beside ``x.clone()`` and L3 beside ``torch._int_mm``; the
-   entries around them; the lab's roof_copy step once more through the old
+   four tiles; B1 beside B5a and the bit-spread B1's time; L2 beside
+   ``x.clone()`` and L3 beside ``torch._int_mm``; the entries around them; the lab's roof_copy step once more through the old
    timer (CUDA events around steps issued from Python), beside the device
    loop's reading and L1's kernel-alone time;
 6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
@@ -92,6 +94,15 @@ CLAY16 = {"k": "16", "m": "4", "d": "19"}
 CLAY16_STRIPES, CLAY16_SC, CLAY16_LOST = 1024, 16, 16
 # A (mout x kin) matrix at the encode variants' gate, mout*kin = 1024.
 GATE_EDGE = (32, 32)
+# B1's inner loop covers one input row's 4 words (gf2_io.cuh VEC); the
+# bit-spread design it replaced took 70 instructions per input word (280 per
+# 32 word-bit pairs) and 68.93 us at the headline encode (chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W).
+B1_LOOP_WORDS = 4
+B1_OLD_PER_WORD = 70
+B1_OLD_US = 68.93
+# L2's expansion and repack loops each cover one 16-word unit.
+L2_UNIT_WORDS = 16
 
 
 def log(*args) -> None:
@@ -180,13 +191,35 @@ def main() -> int:
             and any(ops.get("LDS", 0) >= 32 for ops in loop_ops)):
         raise AssertionError(f"the unpack kernel has no plane expansion "
                              f"and repack loops: {unpack}")
-    log(f"[sass] L2 unpack_repack_words keeps its expansion loop (>= 32 STS "
-        f"of int8 planes) and its repack loop (>= 32 LDS)")
+    expand = min(n for found in unpack.values() for n, ops in found
+                 if ops.get("STS", 0) >= 32)
+    repack = min(n for found in unpack.values() for n, ops in found
+                 if ops.get("LDS", 0) >= 32)
+    log(f"[sass] L2 unpack_repack_words keeps its expansion loop ({expand} "
+        f"instructions, >= 32 STS of int8 planes) and its repack loop "
+        f"({repack}, >= 32 LDS): {(expand + repack) / L2_UNIT_WORDS:.2f} "
+        f"instructions per word")
+    # B1's inner loop applies one input row's VEC words to RB output rows:
+    # 3 prmt per (word, row), 48 in all.
+    b1_loops = {}
     for n, found in sass.kernel_loops("gf2_apply").items():
-        if "gf2_apply_kernel" in n and "WordIO" in n:
-            kind = "production (tile=None)" if "Lb0E" in n else "tiled"
+        if "gf2_words_kernel" in n:
+            kind = "production" if "Lb0E" in n else "tiled"
+            inner = [length for length, ops in found
+                     if ops.get("PRMT", 0) >= 3 * B1_LOOP_WORDS * 4]
+            if not inner:
+                raise AssertionError(f"no field-table loop in B1 ({kind}): "
+                                     f"{found}")
+            b1_loops[kind] = min(inner)
             log(f"[sass] B1 {kind}: loops of "
-                f"{[length for length, _ in found]} instructions")
+                f"{[length for length, _ in found]} instructions; inner loop "
+                f"{min(inner)} = {min(inner) / B1_LOOP_WORDS:.2f} per input "
+                f"word")
+    b1_per_word = b1_loops["production"] / B1_LOOP_WORDS
+    if b1_per_word >= B1_OLD_PER_WORD:
+        raise AssertionError(f"B1's loop takes {b1_per_word:.2f} instructions "
+                             f"per input word, not below the bit-spread "
+                             f"design's {B1_OLD_PER_WORD}")
 
     # -- 2. the card -------------------------------------------------------
     smi = perf_lab.nvidia_smi_line()
@@ -469,10 +502,9 @@ def main() -> int:
         raise AssertionError("headline words decode differs")
     rs_launches = counts()
     log(f"[main path: jax_rs] launches {rs_launches}")
-    for name in ("gf2_apply_words", "gf2_apply_u8"):
-        if rs_launches[name] == 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"jax_rs main path")
+    if rs_launches["gf2_apply_words"] == 0:
+        raise AssertionError("kernel gf2_apply_words was not launched on the "
+                             "jax_rs main path")
 
     # -- 4b. the repair main path (CLAY, LRC, SHEC), counted -----------------
     ck.reset_launch_counts()
@@ -599,6 +631,12 @@ def main() -> int:
     for name in ("gf2_apply_words_cmp", "gf2_apply_words_split2",
                  "gf2_apply_u8_split2"):
         main_launches[name] = variant_launches[name]
+    # B2 serves the jax_rs path's byte lengths that are not whole words and,
+    # under enc_u8_expand, every unblocked apply: both paths count.
+    main_launches["gf2_apply_u8"] += variant_launches["gf2_apply_u8"]
+    if main_launches["gf2_apply_u8"] == 0:
+        raise AssertionError("kernel gf2_apply_u8 was not launched on the "
+                             "jax_rs or variants main path")
     ck.set_encode_variant("")
 
     # -- 4d. the perf lab, counted -------------------------------------------
@@ -706,7 +744,7 @@ def main() -> int:
          lambda: dec_ap.apply_words(dec_words),
          lambda: ck.gf2_apply_words_plain(dec_ap.consts.plain_bm32(dev),
                                           dec_words), bound_s, bound_by),
-        ("gf2_apply_u8", "encode bytes (auto)",
+        ("gf2_apply_u8", "encode bytes",
          lambda: ck.gf2_apply_u8(enc_ap.consts, stream),
          lambda: ck.gf2_apply_u8_plain(enc_ap.consts.plain_bm(dev), stream),
          bound_s, bound_by),
@@ -806,8 +844,18 @@ def main() -> int:
     clone_s = min(time_it(lambda: words.clone()),
                   time_it(lambda: words.clone()))
     library["unpack_repack_words"] = clone_s
+    l2_s = times["unpack_repack_words"][0]
     log(f"[time] words.clone(), L2's library call: {clone_s * 1e6:.2f} us "
-        f"= {100 * copy_s / clone_s:.1f}% of bound")
+        f"= {100 * copy_s / clone_s:.1f}% of bound; L2 "
+        f"{l2_s * 1e6:.2f} us = {l2_s / clone_s:.3f}x clone")
+    # B1's yardsticks: B5a, the fastest other formulation, in this run, and
+    # the bit-spread B1 that the field-table design replaced.
+    b1_s = times["gf2_apply_words"][0]
+    b5a_s = times["gf2_apply_words_cmp"][0]
+    log(f"[time] B1 field tables, headline encode: {b1_s * 1e6:.2f} us "
+        f"({b1_per_word:.2f} SASS instructions per input word) against B5a "
+        f"{b5a_s * 1e6:.2f} us in this run ({b1_s / b5a_s:.3f}x) and the "
+        f"bit-spread B1's {B1_OLD_US} us ({b1_s * 1e6 / B1_OLD_US:.3f}x)")
     try:
         int_mm = torch._int_mm(lab_a, lab_bits)
         mm_layout = "B (256, n) row-major, as the kernel reads it"

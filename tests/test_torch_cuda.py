@@ -265,3 +265,57 @@ def test_device_loop_times_the_card_and_counts_one_launch(cuda):
     sec = benchmark.device_seconds_per_iter(step, words, lo=8, hi=40)
     assert sec > 0
     assert perf_lab.LAUNCHES["roof_copy_xor"] == before + 1
+
+
+# B1's field-table kernel: every matrix shape the main path gives it, rows
+# strided in and out, ragged lengths, at the production launch and at each
+# tile of the lab's sweep
+B1_MATRICES = {
+    "encode": lambda: generator_matrix("reed_sol_van", 8, 4)[8:],
+    "random_32x32": lambda: np.random.default_rng(32).integers(
+        0, 256, (32, 32), dtype=np.uint8),
+    "blocked_w32": lambda: ErasureCodeJaxRS(
+        {"k": "4", "m": "2", "technique": "reed_sol_van", "w": "32"},
+        device="cpu").full_bm[4 * 32:],
+    "one_row_40": lambda: np.random.default_rng(5).integers(
+        1, 256, (1, 40), dtype=np.uint8),
+}
+
+
+@pytest.mark.parametrize("tile", [None, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("n4", [3 * 4096 + 1001, 4099, 3])
+@pytest.mark.parametrize("matrix", sorted(B1_MATRICES))
+def test_field_table_kernel_strided_ragged(cuda, matrix, n4, tile):
+    consts = ck.ShardApply(B1_MATRICES[matrix]()).consts
+    big = _int32((consts.kin, n4 + 37), n4, cuda)
+    words = big[:, 5:5 + n4]                 # row stride n4 + 37, offset 5
+    out_big = torch.zeros((consts.mout, n4 + 12), dtype=torch.int32,
+                          device=cuda)
+    out = out_big[:, 4:4 + n4]
+    before = ck.LAUNCHES["gf2_apply_words"]
+    got = ck.gf2_apply_words(consts, words, out=out, tile=tile)
+    assert ck.LAUNCHES["gf2_apply_words"] == before + 1
+    assert got is out
+    want = ck.gf2_apply_words_plain(consts.plain_bm32(cuda),
+                                    words.contiguous())
+    assert torch.equal(out, want)
+    assert int(out_big[:, :4].abs().sum()) == 0
+    assert int(out_big[:, 4 + n4:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("shape", [(8, 1 << 18), (17, 70001), (9, 4100),
+                                   (8, 4099), (2, 256)])
+def test_unpack_repack_tiles_and_edges(cuda, shape):
+    """Many tiles per block (the persistent grid), row-block and column
+    edges, n4 % 4 != 0 (no 16-byte access), and a base that is only 4-byte
+    aligned."""
+    from ceph_tpu_torch.testing import perf_lab
+
+    words = _int32(shape, 9, cuda)
+    flat = _int32((shape[0] * shape[1] + 1,), 10, cuda)
+    offset = flat[1:].view(shape)            # contiguous, 4-byte aligned
+    for x in (words, offset):
+        before = perf_lab.LAUNCHES["unpack_repack_words"]
+        got = perf_lab.unpack_repack_words(x)
+        assert perf_lab.LAUNCHES["unpack_repack_words"] == before + 1
+        assert torch.equal(got, x)

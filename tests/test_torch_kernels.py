@@ -168,8 +168,9 @@ def test_encode_variant_selection(monkeypatch):
         ck.set_encode_variant("auto")
         assert ck.get_encode_variant() == ""
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        ck.set_encode_variant("enc_u8_expand")
         ck.set_encode_variant("auto")
-        assert ck.get_encode_variant() == "enc_u8_expand"
+        assert ck.get_encode_variant() == ""
         with pytest.raises(ValueError):
             ck.set_encode_variant("nope")
         for name in ("enc_cmp_expand", "enc_split2", "enc_u8_split2"):

@@ -210,3 +210,121 @@ def test_roof_matmul_staging_swizzle_is_conflict_free():
                            + _bt_chunk(4 * (lane & 3) + q)) % 8
                           for lane in range(8 * phase, 8 * phase + 8)}
                 assert len(groups) == 8
+
+
+# -- a numpy model of unpack_repack_words' thread-to-unit mapping ---------------
+
+UB_THREADS, UB_ROWS, UB_WORDS, UNIT_WORDS = 128, 8, 256, 16
+UB_GROUPS = UB_WORDS // UNIT_WORDS
+UB_UNITS = UB_ROWS * UB_GROUPS
+
+
+def _transpose4(q):
+    """transpose4: out[b] holds byte b of q[0..3] as its bytes 0..3."""
+    raw = np.asarray(q, "<u4").view(np.uint8).reshape(4, 4)   # [word, byte]
+    return np.ascontiguousarray(raw.T).view("<u4").reshape(4)
+
+
+def _model_unpack_tile(x: np.ndarray, r0: int, c0: int):
+    """One tile of csrc/lab_bits.cu's unpack_repack_kernel, thread by
+    thread: each thread's 16-word unit (zero past the edge), four
+    transposes, one 16-byte store per plane into the (row*32 + bit, column)
+    buffer; then each unit read back by the thread 32 lanes away, repacked
+    by shift-add and transposed back.  Returns the plane buffer, the
+    repacked tile and the 16-byte chunks each 8-lane store phase wrote."""
+    rows, n4 = x.shape
+    xs = x.view(np.uint32)
+    planes = np.full((UB_ROWS * 32, UB_WORDS), 0xEE, np.uint8)
+    phases = {}
+
+    def unit(u):
+        return r0 + u // UB_GROUPS, c0 + UNIT_WORDS * (u % UB_GROUPS)
+
+    for tid in range(UB_THREADS):
+        row, w0 = unit(tid)
+        w = np.array([xs[row, w0 + e] if row < rows and w0 + e < n4 else 0
+                      for e in range(UNIT_WORDS)], np.uint32)
+        t = [_transpose4(w[4 * g:4 * g + 4]) for g in range(4)]
+        for b in range(4):
+            for p in range(8):
+                chunk = np.array([(t[g][b] >> p) & 0x01010101
+                                  for g in range(4)], "<u4").view(np.uint8)
+                prow = (tid // UB_GROUPS) * 32 + 8 * b + p
+                col = UNIT_WORDS * (tid % UB_GROUPS)
+                planes[prow, col:col + 16] = chunk
+                phases.setdefault((tid // 8, b, p), []).append(
+                    (prow * UB_WORDS + col) // 16)
+    out = np.zeros((UB_ROWS, UB_WORDS), np.uint32)
+    for tid in range(UB_THREADS):
+        u = tid ^ 32
+        prow0, col = (u // UB_GROUPS) * 32, UNIT_WORDS * (u % UB_GROUPS)
+        t = np.zeros((4, 4), np.uint32)
+        for b in range(4):
+            for p in range(8):
+                v = planes[prow0 + 8 * b + p, col:col + 16].view("<u4")
+                t[:, b] += v << np.uint32(p)
+        words = np.concatenate([_transpose4(t[g]) for g in range(4)])
+        out[u // UB_GROUPS, col:col + 16] = words
+    return planes, out, phases
+
+
+@pytest.mark.parametrize("shape,r0,c0", [((8, 512), 0, 256), ((3, 1001), 0, 768),
+                                         ((11, 256), 8, 0)])
+def test_unpack_model_writes_l3_b_layout(shape, r0, c0):
+    """The planes the threads write are L3's B operand for the tile's rows:
+    plane (row*32 + bit, column) = bit of word c0 + column of row r0 + row,
+    zero past the edge; the repack by the other warp gives the words back,
+    and every 8-lane phase of a plane store writes 128 contiguous bytes (no
+    bank conflict)."""
+    x = _words(shape, sum(shape))
+    planes, out, phases = _model_unpack_tile(x, r0, c0)
+    tile = np.zeros((UB_ROWS, UB_WORDS), np.uint32)
+    sub = x.view(np.uint32)[r0:r0 + UB_ROWS, c0:c0 + UB_WORDS]
+    tile[:sub.shape[0], :sub.shape[1]] = sub
+    # L3's B layout of these rows (the JAX lab's ``bits``): plane
+    # (row*32 + bit, column) = bit of the word in that column, int8 0/1
+    want = np.stack([(tile >> np.uint32(bit)) & 1 for bit in range(32)],
+                    axis=1).reshape(UB_ROWS * 32, UB_WORDS)
+    assert np.array_equal(planes, want.astype(np.uint8))
+    assert np.array_equal(out, tile)
+    for chunks in phases.values():
+        assert sorted(chunks) == list(range(min(chunks), min(chunks) + 8))
+
+
+def _stage_chunk(k):
+    u = k >> 2
+    return (u << 2) | (((k & 3) + (u >> 1)) & 3)
+
+
+def test_unpack_staging_is_conflict_free_and_row_contiguous():
+    """A whole tile's repacked words go through the 8 KiB staging buffer:
+    unit u's chunk q (natural chunk 4u + q) is stored at stage_chunk, then
+    thread t reads natural chunks t + 128j and stores them.  The map is a
+    permutation; 8 lanes of a store or a read hit 8 distinct 16-byte bank
+    groups; each warp's global store is 32 consecutive chunks of one row."""
+    chunks = UB_ROWS * UB_WORDS // 4
+    phys = [_stage_chunk(k) for k in range(chunks)]
+    assert sorted(phys) == list(range(chunks))
+    for q in range(4):                       # the repack's stores
+        for tid0 in range(0, UB_THREADS, 8):
+            units = [t ^ 32 for t in range(tid0, tid0 + 8)]
+            assert len({_stage_chunk(4 * u + q) % 8 for u in units}) == 8
+    for j in range(4):                       # the coalesced reads
+        for tid0 in range(0, UB_THREADS, 8):
+            ks = [t + UB_THREADS * j for t in range(tid0, tid0 + 8)]
+            assert len({_stage_chunk(k) % 8 for k in ks}) == 8
+    for j in range(4):
+        for w in range(UB_THREADS // 32):
+            ks = [32 * w + l + UB_THREADS * j for l in range(32)]
+            rows = {k // (UB_WORDS // 4) for k in ks}
+            cols = [k % (UB_WORDS // 4) for k in ks]
+            assert len(rows) == 1 and cols == list(range(cols[0], cols[0] + 32))
+    # the round trip: a tile's words staged by unit, read back in order
+    x = _words((UB_ROWS, UB_WORDS), 3).view(np.uint32)
+    stage = np.zeros((chunks, 4), np.uint32)
+    for u in range(UB_UNITS):
+        for q in range(4):
+            stage[_stage_chunk(4 * u + q)] = \
+                x.reshape(chunks, 4)[4 * u + q]
+    back = np.stack([stage[_stage_chunk(k)] for k in range(chunks)])
+    assert np.array_equal(back.reshape(UB_ROWS, UB_WORDS), x)
