@@ -1,14 +1,36 @@
 // Shared device code of the port's GF(2) region-apply kernels
-// (gf2_apply.cu, gf2_grouped.cu): the bit spread and the two views of the
-// data a thread reads and writes 16 bytes at a time.
+// (gf2_apply.cu, gf2_grouped.cu, gf2_variants.cu): the two views of the
+// data a thread reads and writes 16 bytes at a time, the bit spread of the
+// variant kernels and the field-table step of the production kernels.
 //
-//   spread(w, j) = ((w >> j) & 0x01010101) * 0xFF: 0xFF in each byte of w
-//                  whose bit j is set, 0x00 elsewhere.
 //   WordIO       (rows, n4) int32 lane words, any row stride.
 //   ByteIO       (rows, N) byte streams, or a (B, rows, C) stripe batch as
 //                B segments of length C, any row and segment strides.
-// Both mask the ragged edge; both take row indices, so a kernel may read
-// rows in any order (the grouped kernels read each group's support rows).
+// A view hands each thread its unit (io.unit(t)): where the thread's 16
+// bytes lie, found once, before any row is read.  After that a row is one
+// c * row_stride away, whatever the layout: the segment arithmetic (one
+// 64-bit division for ByteIO) runs once per thread, not once per row.  A
+// unit reads and writes rows by index, so a kernel may read rows in any
+// order (the grouped kernels read each group's support rows).
+//
+// Each unit has two paths.  An interior unit (`vec`: all 16 bytes inside
+// the data and inside one segment, 16-byte aligned) takes one LDG.128 /
+// STG.128 per row and nothing else (load_vec, store_vec).  The ragged
+// edge, a segment boundary or an unaligned base takes the edge path
+// (load_edge, store_edge): word by word for WordIO; byte by byte for
+// ByteIO, walking from the unit's first byte and stepping to the next
+// segment's row when it meets the end of one, with no division.  A kernel
+// that wants an interior-only row loop picks the path once per thread
+// (Path::kVec or kEdge, see load_row); load / store (Path::kAny) test
+// `vec` per call, for kernels that keep one loop and for the stores after
+// it.
+//
+//   spread(w, j) = ((w >> j) & 0x01010101) * 0xFF: 0xFF in each byte of w
+//                  whose bit j is set, 0x00 elsewhere (gf2_variants.cu).
+//   apply_fields   the field-table step (gf2_apply.cu's header note): one
+//                  input row's VEC words looked up with prmt in the byte
+//                  tables of 4 output rows, XORed into interleaved
+//                  accumulators; deinterleave undoes the interleave.
 
 #pragma once
 
@@ -17,11 +39,58 @@
 
 namespace gf2 {
 
-constexpr int VEC = 4;       // 32-bit words per thread (16 bytes)
+constexpr int VEC = 4;          // 32-bit words per thread (16 bytes)
+constexpr int FIELD_ROWS = 4;   // output rows of one apply_fields step
+constexpr int FIELD_WORDS = 5;  // T0 (2 words), T1 (2), T2 (1) per (r, c)
+
+static_assert(VEC % 2 == 0, "words are read in pairs");
 
 __device__ __forceinline__ uint32_t spread(uint32_t w, int j) {
   return ((w >> j) & 0x01010101u) * 0xFFu;
 }
+
+// -- the two views --------------------------------------------------------
+
+// One thread's VEC words of every row of a WordIO view, from word w0.
+struct WordUnit {
+  const uint32_t* in;  // row 0, word w0
+  uint32_t* out;
+  long long in_stride;
+  long long out_stride;
+  int n;               // words of the unit inside the row, at most VEC
+  bool vec;            // n == VEC and 16-byte access allowed
+
+  __device__ __forceinline__ void load_vec(int c, uint32_t (&w)[VEC]) const {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(in + c * in_stride));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+
+  __device__ __forceinline__ void load_edge(int c, uint32_t (&w)[VEC]) const {
+    const uint32_t* p = in + c * in_stride;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) w[v] = v < n ? __ldg(p + v) : 0u;
+  }
+
+  __device__ __forceinline__ void store_vec(int r, const uint32_t (&w)[VEC]) const {
+    *reinterpret_cast<uint4*>(out + r * out_stride) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+
+  __device__ __forceinline__ void store_edge(int r, const uint32_t (&w)[VEC]) const {
+    uint32_t* p = out + r * out_stride;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      if (v < n) p[v] = w[v];
+  }
+
+  __device__ __forceinline__ void load(int c, uint32_t (&w)[VEC]) const {
+    if (vec) load_vec(c, w); else load_edge(c, w);
+  }
+
+  __device__ __forceinline__ void store(int r, const uint32_t (&w)[VEC]) const {
+    if (vec) store_vec(r, w); else store_edge(r, w);
+  }
+};
 
 // (rows, n4) int32 words, row stride in words.
 struct WordIO {
@@ -32,32 +101,89 @@ struct WordIO {
   long long out_stride;
   bool vec_ok;  // base pointers 16-byte aligned and strides multiples of 4
 
-  __device__ __forceinline__ void load(int c, long long t, uint32_t (&w)[VEC]) const {
+  __device__ __forceinline__ WordUnit unit(long long t) const {
     const long long w0 = t * VEC;
-    const uint32_t* p = in + c * in_stride + w0;
-    if (vec_ok && w0 + VEC <= n4) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) w[v] = (w0 + v < n4) ? __ldg(p + v) : 0u;
-    }
+    const long long left = n4 - w0;
+    WordUnit u;
+    u.in = in + w0;
+    u.out = out + w0;
+    u.in_stride = in_stride;
+    u.out_stride = out_stride;
+    u.n = left < VEC ? int(left) : VEC;
+    u.vec = vec_ok && u.n == VEC;
+    return u;
   }
 
-  __device__ __forceinline__ void store(int r, long long t, const uint32_t (&w)[VEC]) const {
-    const long long w0 = t * VEC;
-    uint32_t* p = out + r * out_stride + w0;
-    if (vec_ok && w0 + VEC <= n4) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        if (w0 + v < n4) p[v] = w[v];
-    }
-  }
-
-  __device__ __forceinline__ long long threads_needed() const {
+  __host__ __device__ long long threads_needed() const {
     return (n4 + VEC - 1) / VEC;
+  }
+};
+
+// One thread's 16 bytes of every row of a ByteIO view: virtual columns
+// x0 .. x0+15, the first of them byte `off` of segment x0 / seg.
+struct ByteUnit {
+  const uint8_t* in;   // row 0 of the unit's first byte
+  uint8_t* out;
+  long long in_row;    // row strides
+  long long out_row;
+  long long seg;       // segment length and strides, for the edge walk
+  long long in_seg;
+  long long out_seg;
+  long long off;
+  int n;               // bytes of the unit before the end of the data
+  bool vec;            // whole unit in one segment, 16-byte access allowed
+
+  __device__ __forceinline__ void load_vec(int c, uint32_t (&w)[VEC]) const {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(in + c * in_row));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  }
+
+  __device__ __forceinline__ void store_vec(int r, const uint32_t (&w)[VEC]) const {
+    *reinterpret_cast<uint4*>(out + r * out_row) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+
+  // Byte b of the unit lies at p_b = p_{b-1} + 1 inside a segment; at the
+  // end of one the walk goes to the same row of the next segment, whose
+  // first byte is p_{b-1} + 1 - seg + seg_stride.  The walk is a loop, not
+  // unrolled, and packs the bytes into two 64-bit halves: unrolled, the
+  // compiler keeps 16 byte addresses live across the row loop, which
+  // doubled the kernels' registers and halved their occupancy.
+  __device__ __forceinline__ void load_edge(int c, uint32_t (&w)[VEC]) const {
+    const uint8_t* p = in + c * in_row;
+    long long o = off;
+    unsigned long long lo = 0, hi = 0;
+#pragma unroll 1
+    for (int b = 0; b < n; ++b) {
+      const unsigned long long byte = __ldg(p);
+      if (b < 8) lo |= byte << (8 * b);
+      else hi |= byte << (8 * (b - 8));
+      ++p;
+      if (++o == seg) { o = 0; p += in_seg - seg; }
+    }
+    w[0] = uint32_t(lo); w[1] = uint32_t(lo >> 32);
+    w[2] = uint32_t(hi); w[3] = uint32_t(hi >> 32);
+  }
+
+  __device__ __forceinline__ void store_edge(int r, const uint32_t (&w)[VEC]) const {
+    uint8_t* p = out + r * out_row;
+    long long o = off;
+    const unsigned long long lo = w[0] | (static_cast<unsigned long long>(w[1]) << 32);
+    const unsigned long long hi = w[2] | (static_cast<unsigned long long>(w[3]) << 32);
+#pragma unroll 1
+    for (int b = 0; b < n; ++b) {
+      *p = uint8_t(b < 8 ? lo >> (8 * b) : hi >> (8 * (b - 8)));
+      ++p;
+      if (++o == seg) { o = 0; p += out_seg - seg; }
+    }
+  }
+
+  __device__ __forceinline__ void load(int c, uint32_t (&w)[VEC]) const {
+    if (vec) load_vec(c, w); else load_edge(c, w);
+  }
+
+  __device__ __forceinline__ void store(int r, const uint32_t (&w)[VEC]) const {
+    if (vec) store_vec(r, w); else store_edge(r, w);
   }
 };
 
@@ -76,55 +202,143 @@ struct ByteIO {
   long long out_seg_stride;
   bool vec_ok;  // 16-byte aligned bases/strides and seg % 16 == 0
 
-  __device__ __forceinline__ long long total() const { return seg * nseg; }
+  __host__ __device__ long long total() const { return seg * nseg; }
 
-  __device__ __forceinline__ void load(int c, long long t, uint32_t (&w)[VEC]) const {
+  __device__ __forceinline__ ByteUnit unit(long long t) const {
     const long long x0 = t * (4 * VEC);
-    if (vec_ok && x0 + 4 * VEC <= total()) {
-      const long long s = x0 / seg, o = x0 - s * seg;
-      const uint8_t* p = in + s * in_seg_stride + c * in_row_stride + o;
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-      return;
-    }
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      uint32_t word = 0;
-      for (int b = 0; b < 4; ++b) {
-        const long long x = x0 + 4 * v + b;
-        if (x < total()) {
-          const long long s = x / seg, o = x - s * seg;
-          word |= uint32_t(__ldg(in + s * in_seg_stride + c * in_row_stride + o)) << (8 * b);
-        }
-      }
-      w[v] = word;
-    }
+    const long long s = x0 / seg;  // the thread's one division
+    const long long left = total() - x0;
+    ByteUnit u;
+    u.off = x0 - s * seg;
+    u.in = in + s * in_seg_stride + u.off;
+    u.out = out + s * out_seg_stride + u.off;
+    u.in_row = in_row_stride;
+    u.out_row = out_row_stride;
+    u.seg = seg;
+    u.in_seg = in_seg_stride;
+    u.out_seg = out_seg_stride;
+    u.n = left < 4 * VEC ? int(left) : 4 * VEC;
+    u.vec = vec_ok && u.n == 4 * VEC;  // seg % 16 == 0: one segment
+    return u;
   }
 
-  __device__ __forceinline__ void store(int r, long long t, const uint32_t (&w)[VEC]) const {
-    const long long x0 = t * (4 * VEC);
-    if (vec_ok && x0 + 4 * VEC <= total()) {
-      const long long s = x0 / seg, o = x0 - s * seg;
-      uint8_t* p = out + s * out_seg_stride + r * out_row_stride + o;
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-      return;
-    }
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      for (int b = 0; b < 4; ++b) {
-        const long long x = x0 + 4 * v + b;
-        if (x < total()) {
-          const long long s = x / seg, o = x - s * seg;
-          out[s * out_seg_stride + r * out_row_stride + o] = uint8_t(w[v] >> (8 * b));
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ long long threads_needed() const {
+  __host__ __device__ long long threads_needed() const {
     return (total() + 4 * VEC - 1) / (4 * VEC);
   }
 };
+
+// Which path a row loop takes through a unit: the interior path only, the
+// edge path only, or a test of `vec` per row.
+enum class Path { kAny, kVec, kEdge };
+
+template <Path P, class Unit>
+__device__ __forceinline__ void load_row(const Unit& u, int c,
+                                         uint32_t (&w)[VEC]) {
+  if (P == Path::kVec) u.load_vec(c, w);
+  else if (P == Path::kEdge) u.load_edge(c, w);
+  else u.load(c, w);
+}
+
+// -- the field-table step --------------------------------------------------
+
+// prmt.b32 in its default mode: byte i of the result is byte nibble_i of
+// the 8 bytes {lo, hi} (lo bytes 0-3, hi bytes 4-7); selector bits 16-31
+// are ignored.  Inline PTX, because __byte_perm may mask the selector first.
+__device__ __forceinline__ uint32_t prmt(uint32_t lo, uint32_t hi,
+                                         uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(lo), "r"(hi), "r"(sel));
+  return r;
+}
+
+// The selectors of the word pair (a, b): s[2f] indexes field f of lanes
+// 0-1 (a's in the even nibbles, b's in the odd), s[2f + 1] of lanes 2-3.
+__device__ __forceinline__ void field_selectors(uint32_t a, uint32_t b,
+                                                uint32_t (&s)[6]) {
+  const uint32_t u0 = (a & 0x07070707u) | ((b << 4) & 0x70707070u);
+  const uint32_t u1 = ((a >> 3) & 0x07070707u) | ((b << 1) & 0x70707070u);
+  const uint32_t u2 = ((a >> 6) & 0x03030303u) | ((b >> 2) & 0x30303030u);
+  s[0] = u0; s[1] = u0 >> 16;
+  s[2] = u1; s[3] = u1 >> 16;
+  s[4] = u2; s[5] = u2 >> 16;
+}
+
+// One input row's words w applied to FIELD_ROWS output rows: t01[rr] =
+// (T0 lo, T0 hi, T1 lo, T1 hi) of row rr, t2v = T2 of the 4 rows.
+// acc[rr][2q + h] holds pair q (words 2q, 2q+1), lanes 2h and 2h+1.
+__device__ __forceinline__ void apply_fields(const uint32_t (&w)[VEC],
+                                             const uint4* t01, uint4 t2v,
+                                             uint32_t (&acc)[FIELD_ROWS][VEC]) {
+  uint32_t sel[VEC / 2][6];
+#pragma unroll
+  for (int q = 0; q < VEC / 2; ++q)
+    field_selectors(w[2 * q], w[2 * q + 1], sel[q]);
+  const uint32_t t2[FIELD_ROWS] = {t2v.x, t2v.y, t2v.z, t2v.w};
+#pragma unroll
+  for (int rr = 0; rr < FIELD_ROWS; ++rr) {
+    const uint4 t = t01[rr];
+#pragma unroll
+    for (int q = 0; q < VEC / 2; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        acc[rr][2 * q + h] ^= prmt(t.x, t.y, sel[q][h]) ^
+                              prmt(t.z, t.w, sel[q][2 + h]) ^
+                              prmt(t2[rr], t2[rr], sel[q][4 + h]);
+  }
+}
+
+// The words of one output row, in order, from its interleaved accumulators.
+__device__ __forceinline__ void deinterleave(const uint32_t (&acc)[VEC],
+                                             uint32_t (&o)[VEC]) {
+#pragma unroll
+  for (int q = 0; q < VEC / 2; ++q) {
+    o[2 * q] = __byte_perm(acc[2 * q], acc[2 * q + 1], 0x6420);
+    o[2 * q + 1] = __byte_perm(acc[2 * q], acc[2 * q + 1], 0x7531);
+  }
+}
+
+// The rows of one staged table chunk: entry cc reads input row row(cc)
+// and applies s_t01[cc * FIELD_ROWS ..] / s_t2[cc]; the next row's words
+// are loaded while the current one is applied.
+template <Path P, class Unit, class RowOf>
+__device__ __forceinline__ void apply_chunk(const Unit& u, int kc, RowOf row,
+                                            const uint4* s_t01,
+                                            const uint4* s_t2,
+                                            uint32_t (&acc)[FIELD_ROWS][VEC]) {
+  uint32_t next[VEC];
+  load_row<P>(u, row(0), next);
+#pragma unroll 1
+  for (int cc = 0; cc < kc; ++cc) {
+    uint32_t w[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) w[v] = next[v];
+    if (cc + 1 < kc) load_row<P>(u, row(cc + 1), next);
+    apply_fields(w, s_t01 + cc * FIELD_ROWS, s_t2[cc], acc);
+  }
+}
+
+// apply_chunk two rows per iteration, ping-ponging the prefetch registers
+// instead of copying them: row cc is applied while row cc+1 loads, then
+// row cc+1 while cc+2 loads.  The interior-only loops of B2, B3 and B4
+// run it (fewer moves and a longer XOR chain per iteration: 130 SASS
+// instructions per row against 145 for B3, and 2-4% faster on the card);
+// B1's loop, which tests the unit per row, ran 10 us slower with it.
+template <Path P, class Unit, class RowOf>
+__device__ __forceinline__ void apply_chunk_pairs(
+    const Unit& u, int kc, RowOf row, const uint4* s_t01, const uint4* s_t2,
+    uint32_t (&acc)[FIELD_ROWS][VEC]) {
+  uint32_t x[VEC], y[VEC];
+  load_row<P>(u, row(0), x);
+  int cc = 0;
+#pragma unroll 1
+  for (; cc + 1 < kc; cc += 2) {
+    load_row<P>(u, row(cc + 1), y);
+    apply_fields(x, s_t01 + cc * FIELD_ROWS, s_t2[cc], acc);
+    if (cc + 2 < kc) load_row<P>(u, row(cc + 2), x);
+    apply_fields(y, s_t01 + (cc + 1) * FIELD_ROWS, s_t2[cc + 1], acc);
+  }
+  if (cc < kc) apply_fields(x, s_t01 + cc * FIELD_ROWS, s_t2[cc], acc);
+}
 
 // Host-side builders: vec_ok when bases and strides allow 16-byte access.
 inline WordIO word_io(const void* in, void* out, long long n4,

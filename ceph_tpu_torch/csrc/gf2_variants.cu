@@ -28,7 +28,7 @@
 // What each carries over from its TPU formulation:
 // - cmp (enc_cmp_expand): the TPU variant tests each bit with mask-AND and
 //   compare-to-zero straight to int8, dropping the shift-and-mask plane.
-//   Here the production spread ((w >> j) & 0x01010101) * 0xFF (gf2_io.cuh)
+//   Here the bit spread ((w >> j) & 0x01010101) * 0xFF (gf2_io.cuh)
 //   becomes a per-byte sign test: w << (7 - j) moves bit j of every byte to
 //   that byte's bit 7 (the bits shifted in from the byte below land under
 //   it and are ignored), and prmt.b32 with selector 0xBA98 replicates each
@@ -48,6 +48,9 @@
 //   (gf2_io.cuh's ByteIO).  The TPU's (kin, 4, N/4) slot layout is a free
 //   view of the (kin, N) stream, and byte lanes never mix, so the kernel
 //   takes the streams and the (B, kin, C) batch directly, at any length.
+//   Each half finds its unit once (a batch's segment division runs once
+//   per thread); the row loop tests the unit per row and keeps the
+//   byte-by-byte edge walk inline (one loop for both paths).
 //
 // Bound.  At the jax_rs headline (k=8, m=4, 16384 stripes x 4 KiB):
 // 64 MiB read + 32 MiB written + 1 KiB of table = 30.05 us at the H100
@@ -111,14 +114,15 @@ __device__ __forceinline__ void stage_table(uint4* s_tab,
 template <class IO, bool CMP, int HALVES>
 __device__ __forceinline__ void apply_block(const uint4* s_tab, const IO& io,
                                             int kin, int mout, int r0) {
-  long long t[HALVES];
   bool live[HALVES];
+  decltype(io.unit(0)) unit[HALVES];  // each half's 16 bytes, found once
   const long long first =
       (long long)blockIdx.x * (HALVES * THREADS) + threadIdx.x;
 #pragma unroll
   for (int h = 0; h < HALVES; ++h) {
-    t[h] = first + (long long)h * THREADS;
-    live[h] = t[h] < io.threads_needed();
+    const long long t = first + (long long)h * THREADS;
+    live[h] = t < io.threads_needed();
+    unit[h] = io.unit(t);
   }
   if (!live[0]) return;  // the later halves lie further out
 
@@ -135,7 +139,7 @@ __device__ __forceinline__ void apply_block(const uint4* s_tab, const IO& io,
 #pragma unroll
     for (int h = 0; h < HALVES; ++h) {  // every load before any XOR chain
       if (live[h]) {
-        io.load(c, t[h], w[h]);
+        unit[h].load(c, w[h]);
       } else {
 #pragma unroll
         for (int v = 0; v < VEC; ++v) w[h][v] = 0u;
@@ -163,7 +167,7 @@ __device__ __forceinline__ void apply_block(const uint4* s_tab, const IO& io,
     if (!live[h]) continue;
 #pragma unroll
     for (int rr = 0; rr < RB; ++rr)
-      if (r0 + rr < mout) io.store(r0 + rr, t[h], acc[h][rr]);
+      if (r0 + rr < mout) unit[h].store(r0 + rr, acc[h][rr]);
   }
 }
 

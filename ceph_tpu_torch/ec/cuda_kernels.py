@@ -7,15 +7,16 @@ and recovery of the jax_rs codecs:
 - ``gf2_apply_words``: (kin, N4) int32 lane words -> (mout, N4) int32.
   Replaces ``_kernel`` (pallas_kernels.py:96-117, launched by
   ``_pallas_apply_words`` :120-141), blocked contraction included; its
-  ``tile`` argument is the launch's (words of a row per block).  It looks
-  up GF(2)-linear byte tables of three bit fields with ``prmt``
-  (``field_tables``).
+  ``tile`` argument is the launch's (words of a row per block).
 - ``gf2_apply_u8``: (kin, N) uint8 byte streams, or a (B, kin, C) stripe
   batch, -> (mout, N) / (B, mout, C) uint8.  Replaces ``_kernel_u8``
   (:199-213, launched by ``_pallas_apply_u8_variant`` :267-288), the
   ``enc_u8_expand`` formulation.  The TPU kernel needs the (kin, 4, N/4)
   slot relayout; on Hopper a thread reads 16 contiguous bytes, so the port
   kernel takes the byte streams as they are, at any length.
+
+Both look up GF(2)-linear byte tables of three bit fields with ``prmt``
+(``field_tables``, ``GF2Constants.fields``).
 
 Three more (``csrc/gf2_variants.cu``) are the other encode variants, each
 for an unblocked contraction only (``variant_applies``):
@@ -39,6 +40,9 @@ Two more (``csrc/gf2_grouped.cu``) carry the sparse repair operators
 - ``gf2_apply_grouped_paired``: each group over its own gathered rows.
   Replaces ``_gkernel`` (:495-507, launched by ``_pallas_apply_grouped``
   :510-526).
+
+Both take per-group field tables (``GroupedPlan.fields``); the variant
+kernels take the column table (``column_table``, ``GF2Constants.table``).
 
 ``GroupedApply`` (counterpart of ``PallasGroupedApply``) picks between them
 by the TPU applier's rule.  Both write each output row at its caller
@@ -119,9 +123,9 @@ def set_encode_variant(name: str) -> None:
     "auto" resolves at set time to the formulation measured fastest on the
     card, and to "" elsewhere.  The JAX package resolves it to
     enc_u8_expand on a TPU; on an H100 at the jax_rs headline encode
-    (chip_smoke.py, H100 80GB HBM3 at 700 W) B1's field tables take 45.16
-    us, B5a (enc_cmp_expand) 56.60, B5b 63.51, B5c 76.20 and B2
-    (enc_u8_expand) 79.92, so "auto" is "" there too.
+    (chip_smoke.py, H100 80GB HBM3 at 700 W) B1's field tables take 46.15
+    us, B5a (enc_cmp_expand) 56.92, B5b 63.55, B5c 77.56 and B2
+    (enc_u8_expand) 82.67, so "auto" is "" there too.
     """
     global _encode_variant
     if name == "auto":
@@ -192,8 +196,9 @@ def column_table(bitmatrix: np.ndarray) -> np.ndarray:
 
     table[r, c, j] holds, in each of its four bytes, the byte whose bit i is
     BM[8r+i, 8c+j]: the contribution of bit j of input byte c to output
-    byte r.  The kernel ANDs it with bit j of every input byte spread to
-    0x00/0xFF and XORs the result into row r."""
+    byte r.  The variant kernels (csrc/gf2_variants.cu) AND it with bit j
+    of every input byte spread to 0x00/0xFF and XOR the result into row
+    r."""
     B = np.asarray(bitmatrix, np.uint32)
     m8, k8 = B.shape
     B = B.reshape(m8 // 8, 8, k8 // 8, 8)               # (r, i, c, j)
@@ -203,9 +208,10 @@ def column_table(bitmatrix: np.ndarray) -> np.ndarray:
     )
 
 
-# The three bit fields of an input byte that index B1's byte tables: bits
-# 0-2, 3-5 and 6-7 (shift, width).  At most 3 bits each, so a field never
-# sets the sign-replicate bit of a prmt selector nibble.
+# The three bit fields of an input byte that index the byte tables of B1,
+# B2 and the grouped kernels: bits 0-2, 3-5 and 6-7 (shift, width).  At
+# most 3 bits each, so a field never sets the sign-replicate bit of a prmt
+# selector nibble.
 FIELDS = ((0, 3), (3, 3), (6, 2))
 
 
@@ -225,8 +231,8 @@ def _byte_maps(bitmatrix: np.ndarray) -> np.ndarray:
 
 
 def field_tables(bitmatrix: np.ndarray) -> np.ndarray:
-    """(8m, 8k) GF(2) bitmatrix -> (m, k, 5) uint32 tables of B1
-    (csrc/gf2_apply.cu).
+    """(8m, 8k) GF(2) bitmatrix -> (m, k, 5) uint32 tables of B1 and B2
+    (csrc/gf2_apply.cu) and, per group, of B3 and B4 (csrc/gf2_grouped.cu).
 
     Block (r, c) of the bitmatrix is a linear map M on bytes, so M(x) =
     M(f0) ^ M(f1 << 3) ^ M(f2 << 6) over the fields of ``FIELDS``.  Words
@@ -245,9 +251,9 @@ class GF2Constants:
     """Device constants of one GF(2) bitmatrix, cached per device.
 
     The table-cache role of ErasureCodeIsaTableCache: the kernel tables on
-    a CUDA device (B1's field tables, the other kernels' column table),
-    the float32 bitmatrices the plain versions contract with on the
-    CPU."""
+    a CUDA device (B1's and B2's field tables, the variant kernels' column
+    table), the float32 bitmatrices the plain versions contract with on
+    the CPU."""
 
     def __init__(self, bitmatrix: np.ndarray):
         self.bitmatrix = np.ascontiguousarray(np.asarray(bitmatrix, np.uint8))
@@ -272,7 +278,7 @@ class GF2Constants:
             column_table(self.bitmatrix).view(np.int32)))
 
     def fields(self, device: torch.device) -> torch.Tensor:
-        """(mout, kin, 5) field tables of B1 as int32 (same bits as
+        """(mout, kin, 5) field tables of B1 and B2 as int32 (same bits as
         uint32)."""
         return self._cached("fields", device, lambda: torch.from_numpy(
             field_tables(self.bitmatrix).view(np.int32)))
@@ -519,12 +525,13 @@ def _words_launch(name: str, source: str, plain, consts: GF2Constants,
 
 
 def _bytes_launch(name: str, source: str, plain, consts: GF2Constants,
-                  data: torch.Tensor,
-                  out: torch.Tensor | None) -> torch.Tensor:
+                  data: torch.Tensor, out: torch.Tensor | None,
+                  tables=GF2Constants.table) -> torch.Tensor:
     """Shared body of the byte-layout wrappers: (kin, N) -> (mout, N), or
     (B, kin, C) -> (B, mout, C), uint8, by the kernel ``name`` on a CUDA
     tensor (any N; rows and the stripe axis may be strided, bytes within a
-    chunk contiguous), by ``plain`` on a CPU tensor."""
+    chunk contiguous), with ``tables(consts, device)`` as its constants;
+    by ``plain`` on a CPU tensor."""
     if data.dtype != torch.uint8 or data.ndim not in (2, 3):
         raise TypeError(f"expected 2-D or 3-D uint8, got {data.dtype} "
                         f"{tuple(data.shape)}")
@@ -556,7 +563,7 @@ def _bytes_launch(name: str, source: str, plain, consts: GF2Constants,
         nseg, seg = 1, data.shape[1]
         in_row, in_seg = data.stride(0), 0
         out_row, out_seg = out.stride(0), 0
-    table = consts.table(data.device)
+    table = tables(consts, data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = c_entry(source, name, _BYTE_ARGS)(
@@ -600,7 +607,7 @@ def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
     parity rows of an encode output.  The plain version for a CPU
     tensor."""
     return _bytes_launch("gf2_apply_u8", KERNEL_SOURCE, gf2_apply_u8_plain,
-                         consts, data, out)
+                         consts, data, out, GF2Constants.fields)
 
 
 def gf2_apply_words_cmp(consts: GF2Constants, words: torch.Tensor,
@@ -782,11 +789,11 @@ class GroupedPlan:
 
     In place of the TPU's lane-expanded ``bms`` the port keeps, per group:
     ``bitmatrices`` (G, 32, 8*cmax) the GF(2) bitmatrix of its (4 x cmax)
-    sub-matrix; ``tables`` (G, 4, cmax, 8) uint32 its kernel table (the
-    column tables of ``column_table``, zero for padding columns);
-    ``ncols`` (G,) its real support size; and ``slot_rows`` (G, 4) the
-    caller row of each slot, -1 for a padding slot, so a kernel writes
-    each row where the caller wants it.
+    sub-matrix; ``fields`` (G, 4, cmax, 5) uint32 its kernel tables (the
+    prmt byte tables of ``field_tables``, zero for padding columns and
+    padding slots); ``ncols`` (G,) its real support size; and
+    ``slot_rows`` (G, 4) the caller row of each slot, -1 for a padding
+    slot, so a kernel writes each row where the caller wants it.
     """
 
     GRP_ROWS = 4        # GF rows per group (a 128-row MXU tile on a TPU)
@@ -852,7 +859,7 @@ class GroupedPlan:
         self.slot_rows = np.full((G, grp), -1, np.int32)
         for gi, rows in enumerate(self.groups):
             self.slot_rows[gi, :len(rows)] = rows
-        self.tables = np.stack([column_table(b) for b in bitmatrices])
+        self.fields = np.stack([field_tables(b) for b in bitmatrices])
         # Caller row r sits at kernel position gather_rows[r]
         # (pallas_kernels.py:418-426); the port's kernels write through
         # slot_rows instead, which is the same map read the other way.
@@ -940,10 +947,10 @@ class GroupedPlan:
         return hit
 
     def tensors(self, device: torch.device) -> tuple:
-        """(tables as int32, cols, ncols, slot_rows) on ``device``."""
+        """(fields as int32, cols, ncols, slot_rows) on ``device``."""
         return self._cached("tensors", device, lambda: tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (self.tables.view(np.int32), self.cols, self.ncols,
+            for a in (self.fields.view(np.int32), self.cols, self.ncols,
                       self.slot_rows)))
 
     def group_constants(self, g: int) -> GF2Constants:
@@ -1008,7 +1015,7 @@ def gf2_apply_grouped_paired_plain(plan: GroupedPlan,
     return _grouped_plain(plan, gathered, gathered=True)
 
 
-# head: table, [cols,] ncols, slot_rows, G, cmax, in, out
+# head: fields, [cols,] ncols, slot_rows, G, cmax, in, out
 _GROUPED_HEAD = [_P, _P, _P, _I, _I, _P, _P]
 # words: n4, in_stride, out_stride, stream
 _GROUPED_WORDS = [_LL, _LL, _LL, _P]
@@ -1045,8 +1052,8 @@ def _grouped_launch(name: str, plan: GroupedPlan, data: torch.Tensor,
     if (tuple(out.shape) != shape or out.dtype != data.dtype
             or out.device != data.device or out.stride(-1) != 1):
         raise ValueError(f"{name}: bad output tensor")
-    table, cols, ncols, slot_rows = plan.tensors(data.device)
-    head = ([table.data_ptr()] + ([] if gathered else [cols.data_ptr()])
+    fields, cols, ncols, slot_rows = plan.tensors(data.device)
+    head = ([fields.data_ptr()] + ([] if gathered else [cols.data_ptr()])
             + [ncols.data_ptr(), slot_rows.data_ptr(), G, plan.cmax,
                data.data_ptr(), out.data_ptr()])
     kind = "paired_" if gathered else ""

@@ -145,6 +145,19 @@ def _key(coeff: np.ndarray) -> bytes:
     return coeff.tobytes() + repr(coeff.shape).encode()
 
 
+def _immutable(coeff: np.ndarray) -> bool:
+    """Whether no one can change ``coeff``'s bytes: it and every array it
+    views are read-only, and the memory beneath is a ``bytes`` object
+    (``np.frombuffer`` over bytes, as ``clay_repair_operator`` returns).
+    numpy refuses to make such an array writeable again."""
+    base = coeff
+    while isinstance(base, np.ndarray):
+        if base.flags.writeable:
+            return False
+        base = base.base
+    return isinstance(base, bytes)
+
+
 class BitplaneEngine:
     """Per-matrix applier cache and the region-op entries, on one device.
 
@@ -153,6 +166,13 @@ class BitplaneEngine:
     the matrix bytes and shape.  Inputs are tensors on ``self.device`` or
     numpy arrays, which are copied there; a tensor on another device is
     refused rather than moved.
+
+    The entries (``apply``, ``apply_words``) also remember, by identity,
+    the applier of each immutable matrix they were given (``_immutable``:
+    a read-only array over ``bytes``, such as a probed repair operator),
+    so a caller that passes the same operator again skips the copy and
+    hash of its bytes; a writeable matrix is keyed by content on every
+    call, so a changed matrix never meets a stale applier.
     """
 
     def __init__(self, device=None, max_cached_matrices: int = 256):
@@ -162,6 +182,9 @@ class BitplaneEngine:
         # GroupedApply, or _NOT_GROUPABLE for a matrix whose plan does not
         # pay (cached either way, as the JAX engine's _grouped_cache)
         self._grouped: FIFOCache = FIFOCache(max_cached_matrices)
+        # id(matrix) -> (matrix, its applier) for immutable matrices; the
+        # matrix is held, so its id is not reused while the entry lives
+        self._resolved: FIFOCache = FIFOCache(max_cached_matrices)
 
     def tensor(self, data, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
         """``data`` as a tensor on this engine's device."""
@@ -198,6 +221,7 @@ class BitplaneEngine:
             raise ValueError(f"applier is {applier.mout}x{applier.kin}, "
                              f"matrix is {coeff.shape}")
         self._appliers.put(_key(coeff), applier)
+        self._resolved.clear()
 
     def grouped_applier(self, coeff: np.ndarray) -> ck.GroupedApply | None:
         """The cached GroupedApply of a sparse matrix, or None when its
@@ -222,11 +246,23 @@ class BitplaneEngine:
             raise ValueError(f"applier is {applier.mout}x{applier.kin}, "
                              f"matrix is {coeff.shape}")
         self._grouped.put(_key(coeff), applier)
+        self._resolved.clear()
 
     def _applier_for(self, coeff: np.ndarray):
+        """The grouped applier of ``coeff``, else its dense one: resolved
+        once per immutable matrix, by content for any other."""
         coeff = np.asarray(coeff, np.uint8)
-        grouped = self.grouped_applier(coeff)
-        return grouped if grouped is not None else self.applier(coeff)
+        immutable = _immutable(coeff)
+        if immutable:
+            hit = self._resolved.get(id(coeff))
+            if hit is not None and hit[0] is coeff:
+                return hit[1]
+        found = self.grouped_applier(coeff)
+        if found is None:
+            found = self.applier(coeff)
+        if immutable:
+            self._resolved.put(id(coeff), (coeff, found))
+        return found
 
     def apply(self, coeff: np.ndarray, data, out=None) -> torch.Tensor:
         """Apply a GF(2^8) coefficient matrix (m, k) to data (B, k, C) or

@@ -33,7 +33,9 @@ def cuobjdump_path() -> str:
 
 def loops(sass: str) -> dict[str, list[tuple[int, dict[str, int]]]]:
     """kernel name -> [(body length, opcode counts)] of each loop longer
-    than MIN_BODY instructions, in address order."""
+    than MIN_BODY instructions, in address order.  Opcodes are counted
+    without their modifiers (``LDG.E.128`` and ``LDG.E.U8`` are both
+    ``LDG``), every opcode of the body."""
     out = {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         name = chunk.splitlines()[0].strip()
@@ -49,7 +51,7 @@ def loops(sass: str) -> dict[str, list[tuple[int, dict[str, int]]]]:
                 ops = collections.Counter(
                     re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
                     for t in body)
-                found.append((len(body), dict(ops.most_common(8))))
+                found.append((len(body), dict(ops.most_common())))
         out[name] = found
     return out
 
@@ -62,9 +64,19 @@ def kernel_loops(source: str) -> dict[str, list[tuple[int, dict[str, int]]]]:
     return loops(sass)
 
 
+def row_loop(found: list[tuple[int, dict[str, int]]], min_prmt: int):
+    """The (length, opcodes) of a field-table kernel's row loop among its
+    loops: the shortest with at least ``min_prmt`` PRMT (the lookups of
+    one input row), or None."""
+    rows = [(n, ops) for n, ops in found if ops.get("PRMT", 0) >= min_prmt]
+    return min(rows, key=lambda x: x[0]) if rows else None
+
+
 def report(source: str) -> list[str]:
-    """One line per (kernel, loop) of a built source's library."""
-    return [f"{source}: {name}: loop of {n} instructions {ops}"
+    """One line per (kernel, loop) of a built source's library, with the
+    loop's 8 most frequent opcodes."""
+    return [f"{source}: {name}: loop of {n} instructions "
+            f"{dict(collections.Counter(ops).most_common(8))}"
             for name, found in kernel_loops(source).items()
             for n, ops in found]
 

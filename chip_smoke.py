@@ -11,9 +11,12 @@ and, phase by phase, raising on any failure:
    at once) and prints the build seconds, ptxas's register report and each
    kernel's loops with their instruction mix (``testing.sass``); fails if
    the lab's unpack kernel (L2) lost its expansion or repack loop (a
-   compiler that folded the planes away would leave a copy), or if B1's
-   field-table loop takes 70 or more instructions per input word (the
-   bit-spread design it replaced);
+   compiler that folded the planes away would leave a copy), if a
+   field-table row loop (B1, B2, B3, B4) takes 70 or more instructions per
+   input word (per group for B3/B4; the bit-spread design they replaced),
+   or if B2's, B3's or B4's interior row loop calls a subroutine (the
+   64-bit division) or loads more than one 16-byte row per input row (a
+   byte-by-byte path inline);
 2. prints the card (torch's name, nvidia-smi's name and power limit);
 3. holds each kernel against its plain PyTorch version on the card, exact
    (``torch.equal``): the dense kernels at the headline k=8 m=4 encode, a
@@ -25,10 +28,12 @@ and, phase by phase, raising on any failure:
    lab's sweep (headline, ragged, the blocked w=32 matrix); the lab's bit
    kernels at the headline and ragged shapes (L2 on words, L3 on the lab's
    bm32 with 0/1 bits and on asymmetric int8 over the whole range, n % 8 !=
-   0 included); the grouped kernels on the CLAY k=8 m=4 d=11 repair operator
-   at the headline repair (words and the (B, 176, sc) batch), the CLAY
-   k=16 m=4 d=19 operator, a random sparse plan with short groups and the
-   pair-padding group, and a ragged length;
+   0 included); B2 at the byte view's edges (a (B, k, 1001) batch, streams
+   whose base is 4 bytes off alignment); the grouped kernels on the CLAY
+   k=8 m=4 d=11 repair operator at the headline repair (words and the
+   (B, 176, sc) batch), the CLAY k=16 m=4 d=19 operator, random sparse
+   plans with short groups and with the pair-padding group, a ragged
+   length, and a (B, 176, 1001) batch whose base is 4 bytes off;
 4. runs the main paths with every launch count set to 0: the corpus check
    (all 16 archives bit-identical, under both encode variants), the
    exhaustive k=8 m=4 erasure sweep (793 patterns), a 64 MiB object split
@@ -52,10 +57,12 @@ and, phase by phase, raising on any failure:
    kernel on the same operator, and the paired kernel at the k=16 repair
    (1024 stripes x 16 KiB chunks); the variant kernels at the headline;
    the copy kernel beside its bound and ``torch.bitwise_xor``; B1 at the
-   four tiles; B1 beside B5a and the bit-spread B1's time; L2 beside
-   ``x.clone()`` and L3 beside ``torch._int_mm``; the entries around them; the lab's roof_copy step once more through the old
-   timer (CUDA events around steps issued from Python), beside the device
-   loop's reading and L1's kernel-alone time;
+   four tiles; B1 beside B5a and the bit-spread B1's time; B2, B3 and B4
+   beside their bit-spread times; L2 beside ``x.clone()`` and L3 beside
+   ``torch._int_mm``; the entries around them, the CLAY k=16 repair entry
+   beside its gather plus B4; the lab's roof_copy step once more through
+   the old timer (CUDA events around steps issued from Python), beside the
+   device loop's reading and L1's kernel-alone time;
 6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +108,16 @@ GATE_EDGE = (32, 32)
 B1_LOOP_WORDS = 4
 B1_OLD_PER_WORD = 70
 B1_OLD_US = 68.93
+# The field-table row loop looks up each input row's 4 words in 4 output
+# rows' (B3: slots') tables, 3 prmt each: 48 PRMT per input row.  B2, B3 and
+# B4 ran the bit spread until their field-table redesign; their last times
+# (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): B2 at the headline
+# encode bytes, B3 on the CLAY k=8 repair's (176, N) streams, B4 at the
+# k=16 repair.
+FIELD_LOOP_PRMT = 3 * B1_LOOP_WORDS * 4
+B2_OLD_US = 82.67
+B3_OLD_US = 157.17
+B4_OLD_US = 143.19
 # L2's expansion and repack loops each cover one 16-word unit.
 L2_UNIT_WORDS = 16
 
@@ -199,27 +216,53 @@ def main() -> int:
         f"instructions, >= 32 STS of int8 planes) and its repack loop "
         f"({repack}, >= 32 LDS): {(expand + repack) / L2_UNIT_WORDS:.2f} "
         f"instructions per word")
-    # B1's inner loop applies one input row's VEC words to RB output rows:
-    # 3 prmt per (word, row), 48 in all.
-    b1_loops = {}
-    for n, found in sass.kernel_loops("gf2_apply").items():
-        if "gf2_words_kernel" in n:
-            kind = "production" if "Lb0E" in n else "tiled"
-            inner = [length for length, ops in found
-                     if ops.get("PRMT", 0) >= 3 * B1_LOOP_WORDS * 4]
-            if not inner:
-                raise AssertionError(f"no field-table loop in B1 ({kind}): "
-                                     f"{found}")
-            b1_loops[kind] = min(inner)
-            log(f"[sass] B1 {kind}: loops of "
-                f"{[length for length, _ in found]} instructions; inner loop "
-                f"{min(inner)} = {min(inner) / B1_LOOP_WORDS:.2f} per input "
-                f"word")
-    b1_per_word = b1_loops["production"] / B1_LOOP_WORDS
-    if b1_per_word >= B1_OLD_PER_WORD:
-        raise AssertionError(f"B1's loop takes {b1_per_word:.2f} instructions "
-                             f"per input word, not below the bit-spread "
-                             f"design's {B1_OLD_PER_WORD}")
+    # The field-table row loops: each input row's VEC words applied to 4
+    # output rows (B3/B4: a group's 4 slots), 3 prmt per (word, row).  B1
+    # keeps one loop of one row for interior and edge units; B2, B3 and B4
+    # run an interior-only loop of two rows, which must hold one 16-byte
+    # load per row and no call.
+    field_kernels = {
+        # label: (source, mangled-name test, interior-only row loop)
+        "B1 production": ("gf2_apply", lambda n: "gf2_words_kernel" in n
+                          and "WordIOELb0E" in n, False),
+        "B1 tiled": ("gf2_apply", lambda n: "gf2_words_kernel" in n
+                     and "WordIOELb1E" in n, False),
+        "B2": ("gf2_apply", lambda n: "gf2_words_kernel" in n
+               and "ByteIO" in n, True),
+        "B3 bytes": ("gf2_grouped", lambda n: "ByteIOELb0E" in n, True),
+        "B3 words": ("gf2_grouped", lambda n: "WordIOELb0E" in n, True),
+        "B4 bytes": ("gf2_grouped", lambda n: "ByteIOELb1E" in n, True),
+        "B4 words": ("gf2_grouped", lambda n: "WordIOELb1E" in n, True),
+    }
+    row_loops = {}
+    for label, (source, match, interior) in field_kernels.items():
+        found = [f for n, f in sass.kernel_loops(source).items() if match(n)]
+        if len(found) != 1:
+            raise AssertionError(f"{label}: {len(found)} kernels match")
+        loop = sass.row_loop(found[0], FIELD_LOOP_PRMT)
+        if loop is None:
+            raise AssertionError(f"no field-table loop in {label}: {found}")
+        length, ops = loop
+        rows = ops["PRMT"] // FIELD_LOOP_PRMT   # input rows per iteration
+        per_word = length / (B1_LOOP_WORDS * rows)
+        row_loops[label] = per_word
+        log(f"[sass] {label}: loops of {[n for n, _ in found[0]]} "
+            f"instructions; row loop {length} for {rows} input row(s) = "
+            f"{per_word:.2f} per input word"
+            f"{' and group' if label.startswith(('B3', 'B4')) else ''} "
+            f"(PRMT {ops.get('PRMT', 0)}, LDG {ops.get('LDG', 0)}, "
+            f"CALL {ops.get('CALL', 0)})")
+        if per_word >= B1_OLD_PER_WORD:
+            raise AssertionError(f"{label}'s row loop takes {per_word:.2f} "
+                                 f"instructions per input word, not below "
+                                 f"the bit-spread design's {B1_OLD_PER_WORD}")
+        if interior and (ops.get("CALL", 0) or ops.get("LDG", 0) > rows):
+            raise AssertionError(f"{label}'s interior row loop has "
+                                 f"{ops.get('CALL', 0)} calls and "
+                                 f"{ops.get('LDG', 0)} global loads for "
+                                 f"{rows} rows: a division or a byte path "
+                                 f"is inline")
+    b1_per_word = row_loops["B1 production"]
 
     # -- 2. the card -------------------------------------------------------
     smi = perf_lab.nvidia_smi_line()
@@ -269,6 +312,22 @@ def main() -> int:
             raise AssertionError(f"kernel != plain version at {label}")
         errs["gf2_apply_words"] = max(errs["gf2_apply_words"], err_w)
         errs["gf2_apply_u8"] = max(errs["gf2_apply_u8"], err_b)
+    # B2 at the byte view's edges: a batch whose 16-byte units straddle
+    # segments, and streams whose base is 4 bytes off 16-byte alignment
+    # (the edge path for every unit).
+    enc = ck.ShardApply(gen[K:]).consts
+    for label, shape, base in (
+            ("(B, k, C) batch, C = 1001", (4096, K, 1001), 0),
+            ("(k, N) streams, base 4 bytes off", (K, n_bytes), 4)):
+        data = rand_u8((int(np.prod(shape)) + base,))[base:].view(shape)
+        got8 = ck.gf2_apply_u8(enc, data)
+        ref8 = ck.gf2_apply_u8_plain(enc.plain_bm(dev), data)
+        torch.cuda.synchronize()
+        ok = torch.equal(got8, ref8)
+        log(f"[exact] gf2_apply_u8 {label}: bytes {shape} -> equal={ok}")
+        if not ok:
+            raise AssertionError(f"gf2_apply_u8 != plain version at {label}")
+        errs["gf2_apply_u8"] = max(errs["gf2_apply_u8"], max_err(got8, ref8))
 
     # The encode-variant kernels (unblocked matrices only) and the lab's
     # copy kernel.
@@ -396,6 +455,14 @@ def main() -> int:
         sparse[i, srng.choice(120, size=9, replace=False)] = \
             srng.integers(1, 256, 9)
     plan_sparse = ck.GroupedPlan(sparse)
+    padded = np.zeros((10, 96), np.uint8)    # 3 groups + the padding group
+    prng = np.random.default_rng(3)
+    for i in range(10):
+        padded[i, prng.choice(96, size=5, replace=False)] = \
+            prng.integers(1, 256, 5)
+    plan_padded = ck.GroupedPlan(padded)
+    if plan_padded.groups[-1] != []:
+        raise AssertionError("the 10 x 96 plan has no pair-padding group")
     kin8 = R8.shape[1]
     n8 = CLAY_STRIPES * CLAY_SC
     gcases = [
@@ -406,9 +473,13 @@ def main() -> int:
          rand_u8((CLAY_STRIPES, kin8, CLAY_SC))),
         ("CLAY k=16 m=4 d=19 R, (B, 4864, sc) batch", plan16,
          rand_u8((CLAY16_STRIPES, R16.shape[1], CLAY16_SC))),
-        ("random sparse 30x120, short groups + pair padding", plan_sparse,
+        ("random sparse 30x120, short groups", plan_sparse,
          rand_u8((120, 1 << 16))),
+        ("random sparse 10x96, pair-padding group", plan_padded,
+         rand_u8((256, 96, 1001))),
         ("ragged length", plan8, rand_u8((kin8, 1_000_003))),
+        ("CLAY k=8 m=4 d=11 R, (B, 176, 1001) batch, base 4 bytes off",
+         plan8, rand_u8((64 * kin8 * 1001 + 4,))[4:].view(64, kin8, 1001)),
     ]
     for label, plan, data in gcases:
         gathered = data.index_select(data.ndim - 2, plan.gather_index(dev))
@@ -792,6 +863,11 @@ def main() -> int:
                            tile=tile), None, bound_s, bound_by)
         for tile in perf_lab.TILES
     ] + [
+        # B3's first row is the main path's layout, the (B, 176, sc) batch
+        # batched_clay_plane_repair_device reads
+        ("gf2_apply_grouped", "CLAY k=8 repair, (B, 176, sc) batch",
+         lambda: ck.gf2_apply_grouped(plan8, helper8),
+         lambda: ck.gf2_apply_grouped_plain(plan8, helper8), b3_s, b3_by),
         ("gf2_apply_grouped", "CLAY k=8 repair, (176, N) bytes",
          lambda: ck.gf2_apply_grouped(plan8, shard8),
          lambda: ck.gf2_apply_grouped_plain(plan8, shard8), b3_s, b3_by),
@@ -799,9 +875,6 @@ def main() -> int:
          lambda: ck.gf2_apply_grouped(plan8, shard8_words),
          lambda: ck.gf2_apply_grouped_plain(plan8, shard8_words), b3_s,
          b3_by),
-        ("gf2_apply_grouped", "CLAY k=8 repair, (B, 176, sc) batch",
-         lambda: ck.gf2_apply_grouped(plan8, helper8),
-         lambda: ck.gf2_apply_grouped_plain(plan8, helper8), b3_s, b3_by),
         ("gf2_apply_grouped_paired", "CLAY k=16 repair, gathered batch",
          lambda: ck.gf2_apply_grouped_paired(plan16, gathered16),
          lambda: ck.gf2_apply_grouped_paired_plain(plan16, gathered16),
@@ -809,10 +882,12 @@ def main() -> int:
     ]
     times = {}
     library = {}
+    row_s = {}                      # (kernel, label) -> kernel seconds
     for name, label, kern, plain, b_s, b_by in rows:
         if plain is None:           # a second launch shape of a kernel
             kern_s, kern_s2 = time_it(kern), time_it(kern)
             k_s = min(kern_s, kern_s2)
+            row_s[name, label] = k_s
             log(f"[time] {name} {label}: {k_s * 1e6:.2f} us (runs "
                 f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
                 f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
@@ -823,6 +898,7 @@ def main() -> int:
         kern_s2 = time_it(kern)
         plain_s2 = time_it(plain, iterations=2, runs=3)
         k_s, p_s = min(kern_s, kern_s2), min(plain_s, plain_s2)
+        row_s[name, label] = k_s
         times.setdefault(name, (k_s, p_s, b_s, b_by))
         log(f"[time] {name} {label}: {k_s * 1e6:.2f} us (runs "
             f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
@@ -856,6 +932,25 @@ def main() -> int:
         f"({b1_per_word:.2f} SASS instructions per input word) against B5a "
         f"{b5a_s * 1e6:.2f} us in this run ({b1_s / b5a_s:.3f}x) and the "
         f"bit-spread B1's {B1_OLD_US} us ({b1_s * 1e6 / B1_OLD_US:.3f}x)")
+    # B2, B3 and B4 on field tables beside their bit-spread times and B1.
+    for label, sec, old, per_word in (
+            ("B2 field tables, headline encode bytes",
+             row_s["gf2_apply_u8", "encode bytes"], B2_OLD_US,
+             row_loops["B2"]),
+            ("B3 field tables, CLAY k=8 repair (176, N) bytes",
+             row_s["gf2_apply_grouped", "CLAY k=8 repair, (176, N) bytes"],
+             B3_OLD_US, row_loops["B3 bytes"]),
+            ("B3 field tables, CLAY k=8 repair (B, 176, sc) batch",
+             row_s["gf2_apply_grouped",
+                   "CLAY k=8 repair, (B, 176, sc) batch"], B3_OLD_US,
+             row_loops["B3 bytes"]),
+            ("B4 field tables, CLAY k=16 repair", times[
+                "gf2_apply_grouped_paired"][0], B4_OLD_US,
+             row_loops["B4 bytes"])):
+        log(f"[time] {label}: {sec * 1e6:.2f} us ({per_word:.2f} SASS "
+            f"instructions per input word) against the bit spread's {old} us "
+            f"({sec * 1e6 / old:.3f}x) and B1's {b1_s * 1e6:.2f} us in this "
+            f"run")
     try:
         int_mm = torch._int_mm(lab_a, lab_bits)
         mm_layout = "B (256, n) row-major, as the kernel reads it"
@@ -907,6 +1002,7 @@ def main() -> int:
     # Beside the grouped kernels: the dense kernels on the same CLAY
     # operator (what grouping saves), the paired route's gather alone, and
     # the fused kernel on the k=16 operator the paired route serves.
+    beside = {}
     for label, fn, b_s in (
             ("gf2_apply_u8 (dense) on CLAY k=8 R, (176, N) bytes",
              lambda: ck.gf2_apply_u8(dense8.consts, shard8), b3_s),
@@ -919,6 +1015,7 @@ def main() -> int:
              lambda: ck.gf2_apply_grouped(plan16, helper16),
              grouped_bound(plan16, CLAY16_STRIPES * CLAY16_SC, False)[0])):
         s1, s2 = time_it(fn, iterations=5), time_it(fn, iterations=5)
+        beside[label] = min(s1, s2)
         log(f"[time] {label}: {min(s1, s2) * 1e6:.2f} us (runs "
             f"{s1 * 1e6:.2f}, {s2 * 1e6:.2f} us), bound {b_s * 1e6:.2f} us "
             f"= {100 * b_s / min(s1, s2):.1f}% of bound")
@@ -940,13 +1037,23 @@ def main() -> int:
          grouped_bound(plan16, CLAY16_STRIPES * CLAY16_SC, False)[0],
          lambda: batched_clay_plane_repair_device(clay16, R16, helper16)),
     ]
+    entry_s = {}
     for variant, label, nbytes, b_s, fn in entries:
         ck.set_encode_variant(variant)
-        sec = time_it(fn)
+        sec = entry_s[label] = time_it(fn)
         log(f"[time] entry {label} (variant {ck.get_encode_variant()!r}): "
             f"{sec * 1e6:.2f} us, {nbytes / sec / 2**30:.2f} GiB/s of "
             f"{'recovered data' if 'clay' in label else 'data'}; bound "
             f"{b_s * 1e6:.2f} us = {100 * b_s / sec:.1f}% of bound")
+    # The k=16 repair entry beside what it launches: the gather and B4 (the
+    # engine resolves R16's applier once, so no copy or hash of its 5 MB).
+    gather_s = beside["index_select gather of the paired route, CLAY k=16"]
+    k16_s = entry_s["batched_clay_plane_repair_device, CLAY k=16 (gather + B4)"]
+    b4_s_run = times["gf2_apply_grouped_paired"][0]
+    log(f"[time] entry CLAY k=16 repair {k16_s * 1e6:.2f} us against gather "
+        f"{gather_s * 1e6:.2f} + B4 {b4_s_run * 1e6:.2f} = "
+        f"{(gather_s + b4_s_run) * 1e6:.2f} us in this run "
+        f"({k16_s / (gather_s + b4_s_run):.3f}x)")
     ck.set_encode_variant("")
     for label, sec in walls.items():
         log(f"[wall] {label}: {sec:.3f} s")

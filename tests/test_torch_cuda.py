@@ -319,3 +319,80 @@ def test_unpack_repack_tiles_and_edges(cuda, shape):
         got = perf_lab.unpack_repack_words(x)
         assert perf_lab.LAUNCHES["unpack_repack_words"] == before + 1
         assert torch.equal(got, x)
+
+
+# The byte view's edges (csrc/gf2_io.cuh): (B, k, C) batches whose 16-byte
+# units straddle segments (C = 1001, C = 5), the k=16 repair's C = 16, the
+# CLAY batch's C = 1024, rows strided past their data, and input and output
+# bases 4 bytes off 16-byte alignment (edge path only)
+BYTE_EDGES = [
+    ("c1024", (3, 1024), 0, 0), ("c1001", (3, 1001), 0, 0),
+    ("c16", (9, 16), 0, 0), ("c5", (7, 5), 0, 0),
+    ("c1024_strided", (3, 1024), 0, 48), ("c16_strided", (9, 16), 0, 16),
+    ("c1024_base4", (3, 1024), 4, 0), ("stream_base4", (4100,), 4, 0),
+]
+
+
+def _byte_edge(shape, rows, base, pad, seed, device):
+    """(rows, N) or (B, rows, C) uint8 whose rows are `pad` bytes longer
+    than their data and whose first byte is `base` bytes past a 16-byte
+    boundary (torch allocations are 16-byte aligned)."""
+    full = (shape[0], rows, shape[1] + pad) if len(shape) == 2 \
+        else (rows, shape[0] + pad)
+    n = int(np.prod(full))
+    flat = _u8((n + base,), seed, device)[base:]
+    x = flat.view(full)
+    return x[..., :x.shape[-1] - pad] if pad else x
+
+
+@pytest.mark.parametrize("edge", BYTE_EDGES, ids=[e[0] for e in BYTE_EDGES])
+@pytest.mark.parametrize("coeff", ["encode", "decode", "blocked_w32"])
+def test_u8_kernel_byte_edges(cuda, edge, coeff):
+    """B2 on field tables at every edge of the byte view, its output
+    written through the same strided, offset layout (nothing else
+    written)."""
+    _, shape, base, pad = edge
+    mat = B1_MATRICES["blocked_w32"]() if coeff == "blocked_w32" else \
+        generator_matrix("reed_sol_van", 8, 4)[8:] if coeff == "encode" \
+        else np.random.default_rng(7).integers(1, 256, (4, 8),
+                                               dtype=np.uint8)
+    consts = ck.ShardApply(mat).consts
+    data = _byte_edge(shape, consts.kin, base, pad, 11, cuda)
+    out = _byte_edge(shape, consts.mout, base, pad, 12, cuda)
+    padded = out.as_strided(out.shape[:-1] + (out.shape[-1] + pad,),
+                            out.stride())
+    keep = padded.clone()
+    before = ck.LAUNCHES["gf2_apply_u8"]
+    got = ck.gf2_apply_u8(consts, data, out=out)
+    assert ck.LAUNCHES["gf2_apply_u8"] == before + 1
+    assert got is out
+    assert torch.equal(out, ck.gf2_apply_u8_plain(consts.plain_bm(cuda),
+                                                  data.contiguous()))
+    # the row padding is untouched
+    assert torch.equal(padded[..., out.shape[-1]:], keep[..., out.shape[-1]:])
+
+
+@pytest.mark.parametrize("edge", BYTE_EDGES, ids=[e[0] for e in BYTE_EDGES])
+@pytest.mark.parametrize("case", GROUPED_CASES[:2] + [(10, 96, 5, 3)],
+                         ids=["clay_shape", "short_groups", "pair_padding"])
+def test_grouped_kernels_byte_edges(cuda, case, edge):
+    """B3 and B4 on field tables at every edge of the byte view, for the
+    CLAY operator's shape, short groups and the pair-padding group."""
+    _, shape, base, pad = edge
+    plan = ck.GroupedPlan(_sparse(*case))
+    data = _byte_edge(shape, plan.kin, base, pad, case[3], cuda)
+    row_dim = data.ndim - 2
+    gathered = data.index_select(row_dim, plan.gather_index(cuda))
+    if base or pad:
+        gathered = _byte_edge(shape, gathered.shape[row_dim], base, pad, 0,
+                              cuda).copy_(gathered)
+    for name, fn, plain, arg in [
+            ("gf2_apply_grouped", ck.gf2_apply_grouped,
+             ck.gf2_apply_grouped_plain, data),
+            ("gf2_apply_grouped_paired", ck.gf2_apply_grouped_paired,
+             ck.gf2_apply_grouped_paired_plain, gathered)]:
+        out = _byte_edge(shape, plan.mout, base, pad, 13, cuda)
+        before = ck.LAUNCHES[name]
+        assert fn(plan, arg, out=out) is out
+        assert ck.LAUNCHES[name] == before + 1
+        assert torch.equal(out, plain(plan, arg.contiguous())), name
