@@ -14,8 +14,9 @@
 //                      16 contiguous bytes of the stream directly, so the
 //                      kernel takes plain (kin, N) byte streams (or the
 //                      (B, kin, C) stripe batch) of any length.
-// Both are one kernel, gf2_words_kernel, over two views of the data
-// (gf2_io.cuh: WordIO for the words, ByteIO for the bytes).
+// Both are one kernel, gf2_io.cuh's gf2_words_kernel with one unit per
+// thread, over two views of the data (WordIO for the words, ByteIO for the
+// bytes); gf2_variants.cu's split2 kernels are the same kernel with two.
 //
 // Function: out[r] = XOR_c  A[r][c] * in[c]  over GF(2^8), for every byte
 // column, given the (8 mout x 8 kin) GF(2) bitmatrix BM of the coefficient
@@ -42,11 +43,12 @@
 // accumulators hold the pair interleaved ([a0 b0 a1 b1], [a2 b2 a3 b3]);
 // two prmt per pair and output row undo it before the store.  (The step is
 // gf2_io.cuh's apply_fields, shared with the grouped kernels.)  As before,
-// each block computes RB output rows (blockIdx.y), the tables are staged
-// through shared memory in chunks of KC input rows, so any (kin, mout)
-// works (the w=32 packet matrix is 64 x 128), with XOR accumulation in
-// registers across chunks (the TPU kernel's kblk blocking, transposed), and
-// the next input row's words are loaded while the current one is applied.
+// each block computes FIELD_ROWS output rows (blockIdx.y), the tables are
+// staged through shared memory in chunks of FIELD_KC input rows, so any
+// (kin, mout) works (the w=32 packet matrix is 64 x 128), with XOR
+// accumulation in registers across chunks (the TPU kernel's kblk blocking,
+// transposed), and the next input row's words are loaded while the current
+// one is applied.
 //
 // The two views differ only in where a thread's 16 bytes lie.  Each thread
 // finds its unit once (gf2_io.cuh); a row is then c * row_stride away.  The
@@ -85,139 +87,37 @@
 
 #include "gf2_io.cuh"
 
-namespace {
-
 using gf2::ByteIO;
-using gf2::FIELD_WORDS;
-using gf2::Path;
+using gf2::FIELD_THREADS;
 using gf2::VEC;
 using gf2::WordIO;
-using gf2::apply_chunk;
-using gf2::apply_chunk_pairs;
 using gf2::byte_io;
-using gf2::deinterleave;
+using gf2::launch_fields;
 using gf2::word_io;
-
-constexpr int RB = gf2::FIELD_ROWS;  // output rows per register block
-constexpr int KC = 32;       // input rows per shared-memory table chunk
-constexpr int THREADS = 256;
-
-// Input row c0 + cc of the current chunk.
-struct ChunkRows {
-  int c0;
-  __device__ __forceinline__ int operator()(int cc) const { return c0 + cc; }
-};
-
-// TILED: a block covers `groups` column groups of THREADS threads (a tile of
-// groups * THREADS * VEC words per row, the Pallas kernel's `tile`) and walks
-// them in turn; with one table chunk (kin <= KC) it stages the chunk once for
-// all of them.  Untiled (the production launches) a block covers one group.
-// SPLIT: each thread picks its unit's path once (an interior-only row loop
-// and an edge loop); otherwise one loop tests the unit per row.
-template <class IO, bool TILED, bool SPLIT>
-__global__ void __launch_bounds__(THREADS)
-gf2_words_kernel(const uint32_t* __restrict__ fields, IO io, int kin,
-                 int mout, int groups) {
-  // s_t01[cc * RB + rr] = (T0 lo, T0 hi, T1 lo, T1 hi) of (r0 + rr, c0 + cc);
-  // s_t2[cc] = T2 of the RB rows.  Zero for rows past mout.
-  __shared__ uint4 s_t01[KC * RB];
-  __shared__ uint4 s_t2[KC];
-  const int r0 = blockIdx.y * RB;
-  const int ngroups = TILED ? groups : 1;
-  for (int g = 0; g < ngroups; ++g) {
-    const long long t =
-        ((long long)blockIdx.x * ngroups + g) * blockDim.x + threadIdx.x;
-    const bool live = t < io.threads_needed();
-    const auto u = io.unit(t);
-
-    // acc[rr][2q + h]: pair q (words 2q, 2q+1), lanes 2h and 2h+1
-    uint32_t acc[RB][VEC];
-#pragma unroll
-    for (int rr = 0; rr < RB; ++rr)
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) acc[rr][v] = 0u;
-
-    for (int c0 = 0; c0 < kin; c0 += KC) {
-      const int kc = min(KC, kin - c0);
-      if (!TILED || g == 0 || kin > KC) {
-        __syncthreads();  // previous chunk fully consumed
-        for (int i = threadIdx.x; i < kc * RB; i += blockDim.x) {
-          const int cc = i / RB, rr = i - cc * RB, r = r0 + rr;
-          const uint32_t* f = fields + ((long long)r * kin + c0 + cc) * FIELD_WORDS;
-          s_t01[i] = r < mout ? make_uint4(f[0], f[1], f[2], f[3])
-                              : make_uint4(0u, 0u, 0u, 0u);
-          reinterpret_cast<uint32_t*>(s_t2)[cc * RB + rr] = r < mout ? f[4] : 0u;
-        }
-        __syncthreads();
-      }
-      if (!live) continue;
-      const ChunkRows rows{c0};
-      if (!SPLIT) apply_chunk<Path::kAny>(u, kc, rows, s_t01, s_t2, acc);
-      else if (u.vec) apply_chunk_pairs<Path::kVec>(u, kc, rows, s_t01, s_t2, acc);
-      else apply_chunk_pairs<Path::kEdge>(u, kc, rows, s_t01, s_t2, acc);
-    }
-    if (live) {
-#pragma unroll
-      for (int rr = 0; rr < RB; ++rr) {
-        if (r0 + rr >= mout) continue;
-        uint32_t o[VEC];
-        deinterleave(acc[rr], o);
-        u.store(r0 + rr, o);
-      }
-    }
-  }
-}
-
-// The grid of a launch over `threads` threads, `per_block` per block, and
-// mout output rows; false when it does not fit.
-bool grid_of(long long threads, long long per_block, int mout, dim3* grid) {
-  const long long blocks = (threads + per_block - 1) / per_block;
-  const int row_blocks = (mout + RB - 1) / RB;
-  if (blocks > 0x7fffffffLL || row_blocks > 65535) return false;
-  *grid = dim3(static_cast<unsigned>(blocks),
-               static_cast<unsigned>(row_blocks));
-  return true;
-}
-
-// One launch of the field-table kernel over `io`: `groups` column groups per
-// block when TILED, else one.
-template <class IO, bool TILED, bool SPLIT>
-int launch_fields(const void* fields, const IO& io, int kin, int mout,
-                  int groups, cudaStream_t stream) {
-  const long long threads = io.threads_needed();
-  if (threads <= 0 || kin <= 0 || mout <= 0) return 0;
-  dim3 grid;
-  if (!grid_of(threads, (long long)THREADS * groups, mout, &grid))
-    return int(cudaErrorInvalidConfiguration);
-  gf2_words_kernel<IO, TILED, SPLIT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const uint32_t*>(fields), io, kin, mout, groups);
-  return int(cudaGetLastError());
-}
-
-}  // namespace
 
 // `fields`: (mout, kin, 5) uint32, cuda_kernels.field_tables.
 extern "C" int gf2_apply_words(const void* fields, const void* in, void* out,
                                int kin, int mout, long long n4,
                                long long in_stride, long long out_stride,
                                void* stream) {
-  return launch_fields<WordIO, false, false>(
+  return launch_fields<WordIO, false, false, 1>(
       fields, word_io(in, out, n4, in_stride, out_stride), kin, mout, 1,
       static_cast<cudaStream_t>(stream));
 }
 
 // gf2_apply_words at a given tile: `tile` words of every row per block, a
-// positive multiple of THREADS * VEC = 1024 (the Pallas kernel's `tile`
+// positive multiple of FIELD_THREADS * VEC = 1024 (the Pallas kernel's `tile`
 // argument, _pallas_apply_words(..., tile=)).
 extern "C" int gf2_apply_words_tiled(const void* fields, const void* in,
                                      void* out, int kin, int mout,
                                      long long n4, long long in_stride,
                                      long long out_stride, int tile,
                                      void* stream) {
-  if (tile <= 0 || tile % (THREADS * VEC)) return int(cudaErrorInvalidValue);
-  return launch_fields<WordIO, true, false>(
+  if (tile <= 0 || tile % (FIELD_THREADS * VEC))
+    return int(cudaErrorInvalidValue);
+  return launch_fields<WordIO, true, false, 1>(
       fields, word_io(in, out, n4, in_stride, out_stride), kin, mout,
-      tile / (THREADS * VEC), static_cast<cudaStream_t>(stream));
+      tile / (FIELD_THREADS * VEC), static_cast<cudaStream_t>(stream));
 }
 
 // `fields`: (mout, kin, 5) uint32, cuda_kernels.field_tables.
@@ -226,7 +126,7 @@ extern "C" int gf2_apply_u8(const void* fields, const void* in, void* out,
                             long long in_row_stride, long long in_seg_stride,
                             long long out_row_stride, long long out_seg_stride,
                             void* stream) {
-  return launch_fields<ByteIO, false, true>(
+  return launch_fields<ByteIO, false, true, 1>(
       fields,
       byte_io(in, out, seg, nseg, in_row_stride, in_seg_stride,
               out_row_stride, out_seg_stride),

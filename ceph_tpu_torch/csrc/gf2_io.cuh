@@ -1,7 +1,8 @@
 // Shared device code of the port's GF(2) region-apply kernels
 // (gf2_apply.cu, gf2_grouped.cu, gf2_variants.cu): the two views of the
-// data a thread reads and writes 16 bytes at a time, the bit spread of the
-// variant kernels and the field-table step of the production kernels.
+// data a thread reads and writes 16 bytes at a time, the field-table step
+// and the dense field-table kernel (B1, B2 and the split2 variants B5b,
+// B5c) built on them.
 //
 //   WordIO       (rows, n4) int32 lane words, any row stride.
 //   ByteIO       (rows, N) byte streams, or a (B, rows, C) stripe batch as
@@ -9,7 +10,7 @@
 // A view hands each thread its unit (io.unit(t)): where the thread's 16
 // bytes lie, found once, before any row is read.  After that a row is one
 // c * row_stride away, whatever the layout: the segment arithmetic (one
-// 64-bit division for ByteIO) runs once per thread, not once per row.  A
+// 64-bit division for ByteIO) runs once per unit, not once per row.  A
 // unit reads and writes rows by index, so a kernel may read rows in any
 // order (the grouped kernels read each group's support rows).
 //
@@ -25,17 +26,21 @@
 // `vec` per call, for kernels that keep one loop and for the stores after
 // it.
 //
-//   spread(w, j) = ((w >> j) & 0x01010101) * 0xFF: 0xFF in each byte of w
-//                  whose bit j is set, 0x00 elsewhere (gf2_variants.cu).
-//   apply_fields   the field-table step (gf2_apply.cu's header note): one
-//                  input row's VEC words looked up with prmt in the byte
-//                  tables of 4 output rows, XORed into interleaved
-//                  accumulators; deinterleave undoes the interleave.
+//   apply_fields      the field-table step (gf2_apply.cu's header note):
+//                     one input row's VEC words looked up with prmt in the
+//                     byte tables of 4 output rows, XORed into interleaved
+//                     accumulators; deinterleave undoes the interleave.
+//   gf2_words_kernel  the dense kernel: tables staged through shared
+//                     memory in chunks of FIELD_KC input rows, HALVES units
+//                     per thread (1 for B1/B2, 2 for the split2 variants,
+//                     FIELD_THREADS units apart), launched by launch_fields.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace gf2 {
 
@@ -44,10 +49,6 @@ constexpr int FIELD_ROWS = 4;   // output rows of one apply_fields step
 constexpr int FIELD_WORDS = 5;  // T0 (2 words), T1 (2), T2 (1) per (r, c)
 
 static_assert(VEC % 2 == 0, "words are read in pairs");
-
-__device__ __forceinline__ uint32_t spread(uint32_t w, int j) {
-  return ((w >> j) & 0x01010101u) * 0xFFu;
-}
 
 // -- the two views --------------------------------------------------------
 
@@ -338,6 +339,183 @@ __device__ __forceinline__ void apply_chunk_pairs(
     apply_fields(y, s_t01 + (cc + 1) * FIELD_ROWS, s_t2[cc + 1], acc);
   }
   if (cc < kc) apply_fields(x, s_t01 + cc * FIELD_ROWS, s_t2[cc], acc);
+}
+
+// apply_chunk over the H units of one thread (the split2 kernels: two
+// units FIELD_THREADS apart): per input row, every unit's next row is
+// loaded first, then the current row is applied to each unit in turn, so
+// each unit's XOR chain covers the others' loads and all loads of a row are
+// issued before any chain that consumes it.
+template <Path P, int H, class Unit, class RowOf>
+__device__ __forceinline__ void apply_chunk_units(
+    const Unit (&u)[H], int kc, RowOf row, const uint4* s_t01,
+    const uint4* s_t2, uint32_t (&acc)[H][FIELD_ROWS][VEC]) {
+  uint32_t next[H][VEC];
+#pragma unroll
+  for (int h = 0; h < H; ++h) load_row<P>(u[h], row(0), next[h]);
+#pragma unroll 1
+  for (int cc = 0; cc < kc; ++cc) {
+    uint32_t w[H][VEC];
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) w[h][v] = next[h][v];
+    if (cc + 1 < kc)
+#pragma unroll
+      for (int h = 0; h < H; ++h) load_row<P>(u[h], row(cc + 1), next[h]);
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      apply_fields(w[h], s_t01 + cc * FIELD_ROWS, s_t2[cc], acc[h]);
+  }
+}
+
+// -- the dense field-table kernel ------------------------------------------
+
+constexpr int FIELD_THREADS = 256;  // threads per block
+constexpr int FIELD_KC = 32;        // input rows per shared-memory table chunk
+
+// Input row c0 + cc of the current chunk.
+struct ChunkRows {
+  int c0;
+  __device__ __forceinline__ int operator()(int cc) const { return c0 + cc; }
+};
+
+// A thread's units t, t + blockDim.x, ... of a view, built in place as one
+// const array: filled element by element, the array cost B1's row loop 5
+// instructions (its row-stride product no longer hoisted above the vec /
+// edge branch).
+template <class Unit, int H>
+struct Units {
+  Unit u[H];
+};
+
+template <class IO, size_t... I>
+__device__ __forceinline__ Units<decltype(((IO*)0)->unit(0)), sizeof...(I)>
+units_of(const IO& io, long long t, std::index_sequence<I...>) {
+  return {{io.unit(t + (long long)I * blockDim.x)...}};
+}
+
+// out[r] = XOR_c A[r][c] * in[c] from the (mout, kin, FIELD_WORDS) field
+// tables, FIELD_ROWS output rows per block (blockIdx.y).
+// TILED: a block covers `groups` column groups of FIELD_THREADS threads (a
+// tile of groups * FIELD_THREADS * VEC words per row, the Pallas kernel's
+// `tile`) and walks them in turn; with one table chunk (kin <= FIELD_KC) it
+// stages the chunk once for all of them.  Untiled a block covers one group.
+// HALVES: units per thread.  A group of HALVES * FIELD_THREADS units gives
+// thread t units t, t + FIELD_THREADS, ...; a unit past the data is dead
+// (no load, no store; the later halves lie further out).
+// SPLIT: each thread picks its path once (an interior-only row loop when all
+// its units are `vec`, else an edge loop: kEdge for one unit, kAny for
+// several, since only the data's and the segments' edges reach it);
+// otherwise one loop tests each unit per row.
+template <class IO, bool TILED, bool SPLIT, int HALVES>
+__global__ void __launch_bounds__(FIELD_THREADS)
+gf2_words_kernel(const uint32_t* __restrict__ fields, IO io, int kin,
+                 int mout, int groups) {
+  // s_t01[cc * FIELD_ROWS + rr] = (T0 lo, T0 hi, T1 lo, T1 hi) of
+  // (r0 + rr, c0 + cc); s_t2[cc] = T2 of the FIELD_ROWS rows.  Zero for
+  // rows past mout.
+  __shared__ uint4 s_t01[FIELD_KC * FIELD_ROWS];
+  __shared__ uint4 s_t2[FIELD_KC];
+  const int r0 = blockIdx.y * FIELD_ROWS;
+  const int ngroups = TILED ? groups : 1;
+  for (int g = 0; g < ngroups; ++g) {
+    const long long t =
+        ((long long)blockIdx.x * ngroups + g) * HALVES * blockDim.x +
+        threadIdx.x;
+    const auto units = units_of(io, t, std::make_index_sequence<HALVES>{});
+    const auto& u = units.u;
+    bool live[HALVES];
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+      live[h] = t + h * blockDim.x < io.threads_needed();
+
+    // acc[h][rr][2q + h']: unit h, pair q (words 2q, 2q+1), lanes 2h', 2h'+1
+    uint32_t acc[HALVES][FIELD_ROWS][VEC];
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+      for (int rr = 0; rr < FIELD_ROWS; ++rr)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[h][rr][v] = 0u;
+
+    for (int c0 = 0; c0 < kin; c0 += FIELD_KC) {
+      const int kc = min(FIELD_KC, kin - c0);
+      if (!TILED || g == 0 || kin > FIELD_KC) {
+        __syncthreads();  // previous chunk fully consumed
+        for (int i = threadIdx.x; i < kc * FIELD_ROWS; i += blockDim.x) {
+          const int cc = i / FIELD_ROWS, rr = i - cc * FIELD_ROWS,
+                    r = r0 + rr;
+          const uint32_t* f =
+              fields + ((long long)r * kin + c0 + cc) * FIELD_WORDS;
+          s_t01[i] = r < mout ? make_uint4(f[0], f[1], f[2], f[3])
+                              : make_uint4(0u, 0u, 0u, 0u);
+          reinterpret_cast<uint32_t*>(s_t2)[cc * FIELD_ROWS + rr] =
+              r < mout ? f[4] : 0u;
+        }
+        __syncthreads();
+      }
+      if (!live[0]) continue;
+      const ChunkRows rows{c0};
+      if constexpr (HALVES == 1) {
+        if (!SPLIT)
+          apply_chunk<Path::kAny>(u[0], kc, rows, s_t01, s_t2, acc[0]);
+        else if (u[0].vec)
+          apply_chunk_pairs<Path::kVec>(u[0], kc, rows, s_t01, s_t2, acc[0]);
+        else
+          apply_chunk_pairs<Path::kEdge>(u[0], kc, rows, s_t01, s_t2, acc[0]);
+      } else {
+        bool vec = SPLIT;
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) vec = vec && u[h].vec;
+        if (vec)
+          apply_chunk_units<Path::kVec>(u, kc, rows, s_t01, s_t2, acc);
+        else
+          apply_chunk_units<Path::kAny>(u, kc, rows, s_t01, s_t2, acc);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) {
+      if (!live[h]) continue;
+#pragma unroll
+      for (int rr = 0; rr < FIELD_ROWS; ++rr) {
+        if (r0 + rr >= mout) continue;
+        uint32_t o[VEC];
+        deinterleave(acc[h][rr], o);
+        u[h].store(r0 + rr, o);
+      }
+    }
+  }
+}
+
+// The grid of a launch over `threads` units, `per_block` per block, and
+// mout output rows; false when it does not fit.
+inline bool grid_of(long long threads, long long per_block, int mout,
+                    dim3* grid) {
+  const long long blocks = (threads + per_block - 1) / per_block;
+  const int row_blocks = (mout + FIELD_ROWS - 1) / FIELD_ROWS;
+  if (blocks > 0x7fffffffLL || row_blocks > 65535) return false;
+  *grid = dim3(static_cast<unsigned>(blocks),
+               static_cast<unsigned>(row_blocks));
+  return true;
+}
+
+// One launch of gf2_words_kernel over `io` on the caller's stream:
+// `groups` column groups per block when TILED, else one.  Returns
+// cudaGetLastError() of the launch.
+template <class IO, bool TILED, bool SPLIT, int HALVES>
+int launch_fields(const void* fields, const IO& io, int kin, int mout,
+                  int groups, cudaStream_t stream) {
+  const long long threads = io.threads_needed();
+  if (threads <= 0 || kin <= 0 || mout <= 0) return 0;
+  dim3 grid;
+  if (!grid_of(threads, (long long)FIELD_THREADS * HALVES * groups, mout,
+               &grid))
+    return int(cudaErrorInvalidConfiguration);
+  gf2_words_kernel<IO, TILED, SPLIT, HALVES><<<grid, FIELD_THREADS, 0,
+                                               stream>>>(
+      static_cast<const uint32_t*>(fields), io, kin, mout, groups);
+  return int(cudaGetLastError());
 }
 
 // Host-side builders: vec_ok when bases and strides allow 16-byte access.

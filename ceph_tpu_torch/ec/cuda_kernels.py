@@ -22,13 +22,18 @@ Three more (``csrc/gf2_variants.cu``) are the other encode variants, each
 for an unblocked contraction only (``variant_applies``):
 
 - ``gf2_apply_words_cmp``: B1's function, bits expanded by a per-byte
-  sign test.  Replaces ``_kernel_cmp_expand`` (:166-178, launched by
+  sign test and ANDed with the column table (``column_table``,
+  ``GF2Constants.table``, which serves this kernel alone).  Replaces
+  ``_kernel_cmp_expand`` (:166-178, launched by
   ``_pallas_apply_words_variant`` :244-264), ``enc_cmp_expand``.
-- ``gf2_apply_words_split2``: B1's function, two independent column
-  halves per thread.  Replaces ``_kernel_split2`` (:181-196, same
-  launch), ``enc_split2``.
-- ``gf2_apply_u8_split2``: B2's function in two halves.  Replaces
-  ``_kernel_u8_split2`` (:216-231, launched at :275), ``enc_u8_split2``.
+- ``gf2_apply_words_split2``: B1's kernel with two independent 16-byte
+  units per thread, both loads of a row issued before either XOR chain.
+  Replaces ``_kernel_split2`` (:181-196, same launch), ``enc_split2``.
+- ``gf2_apply_u8_split2``: B2's kernel with two units per thread.
+  Replaces ``_kernel_u8_split2`` (:216-231, launched at :275),
+  ``enc_u8_split2``.
+
+Both split2 kernels take the field tables, as B1 and B2 do.
 
 Two more (``csrc/gf2_grouped.cu``) carry the sparse repair operators
 (CLAY regenerating repair), row-grouped by ``GroupedPlan``:
@@ -41,8 +46,7 @@ Two more (``csrc/gf2_grouped.cu``) carry the sparse repair operators
   Replaces ``_gkernel`` (:495-507, launched by ``_pallas_apply_grouped``
   :510-526).
 
-Both take per-group field tables (``GroupedPlan.fields``); the variant
-kernels take the column table (``column_table``, ``GF2Constants.table``).
+Both take per-group field tables (``GroupedPlan.fields``).
 
 ``GroupedApply`` (counterpart of ``PallasGroupedApply``) picks between them
 by the TPU applier's rule.  Both write each output row at its caller
@@ -123,9 +127,12 @@ def set_encode_variant(name: str) -> None:
     "auto" resolves at set time to the formulation measured fastest on the
     card, and to "" elsewhere.  The JAX package resolves it to
     enc_u8_expand on a TPU; on an H100 at the jax_rs headline encode
-    (chip_smoke.py, H100 80GB HBM3 at 700 W) B1's field tables take 46.15
-    us, B5a (enc_cmp_expand) 56.92, B5b 63.55, B5c 77.56 and B2
-    (enc_u8_expand) 82.67, so "auto" is "" there too.
+    (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700.00 W) B2 (enc_u8_expand)
+    takes 45.13 us, B1's field tables ("") 45.19, B5b (enc_split2) 47.37,
+    B5c (enc_u8_split2) 50.63 and B5a (enc_cmp_expand) 55.55.  Timed in
+    one interleaved loop, B5b is 1.036x B1 and B5c 1.119x B2 at the encode
+    (1.035x and 1.115x at the 4-erasure decode), slower in every round,
+    and B1 and B2 are level, so "auto" is "" there too.
     """
     global _encode_variant
     if name == "auto":
@@ -196,9 +203,9 @@ def column_table(bitmatrix: np.ndarray) -> np.ndarray:
 
     table[r, c, j] holds, in each of its four bytes, the byte whose bit i is
     BM[8r+i, 8c+j]: the contribution of bit j of input byte c to output
-    byte r.  The variant kernels (csrc/gf2_variants.cu) AND it with bit j
-    of every input byte spread to 0x00/0xFF and XOR the result into row
-    r."""
+    byte r.  B5a (``gf2_apply_words_cmp``, csrc/gf2_variants.cu), its only
+    kernel, ANDs it with bit j of every input byte expanded to 0x00/0xFF
+    and XORs the result into row r."""
     B = np.asarray(bitmatrix, np.uint32)
     m8, k8 = B.shape
     B = B.reshape(m8 // 8, 8, k8 // 8, 8)               # (r, i, c, j)
@@ -251,7 +258,7 @@ class GF2Constants:
     """Device constants of one GF(2) bitmatrix, cached per device.
 
     The table-cache role of ErasureCodeIsaTableCache: the kernel tables on
-    a CUDA device (B1's and B2's field tables, the variant kernels' column
+    a CUDA device (the field tables of B1, B2, B5b and B5c; B5a's column
     table), the float32 bitmatrices the plain versions contract with on
     the CPU."""
 
@@ -273,13 +280,14 @@ class GF2Constants:
         return hit
 
     def table(self, device: torch.device) -> torch.Tensor:
-        """(mout, kin, 8) kernel table as int32 (same bits as uint32)."""
+        """(mout, kin, 8) column table of B5a as int32 (same bits as
+        uint32)."""
         return self._cached("table", device, lambda: torch.from_numpy(
             column_table(self.bitmatrix).view(np.int32)))
 
     def fields(self, device: torch.device) -> torch.Tensor:
-        """(mout, kin, 5) field tables of B1 and B2 as int32 (same bits as
-        uint32)."""
+        """(mout, kin, 5) field tables of B1, B2, B5b and B5c as int32 (same
+        bits as uint32)."""
         return self._cached("fields", device, lambda: torch.from_numpy(
             field_tables(self.bitmatrix).view(np.int32)))
 
@@ -481,9 +489,8 @@ def _require_unblocked(name: str, consts: GF2Constants) -> None:
 
 
 def _words_launch(name: str, source: str, plain, consts: GF2Constants,
-                  words: torch.Tensor, out: torch.Tensor | None,
-                  tile: int | None = None,
-                  tables=GF2Constants.table) -> torch.Tensor:
+                  words: torch.Tensor, out: torch.Tensor | None, tables,
+                  tile: int | None = None) -> torch.Tensor:
     """Shared body of the word-layout wrappers: (kin, N4) int32 ->
     (mout, N4) int32 by the kernel ``name`` on a CUDA tensor (through its
     ``<name>_tiled`` entry when given a tile), with ``tables(consts,
@@ -525,13 +532,12 @@ def _words_launch(name: str, source: str, plain, consts: GF2Constants,
 
 
 def _bytes_launch(name: str, source: str, plain, consts: GF2Constants,
-                  data: torch.Tensor, out: torch.Tensor | None,
-                  tables=GF2Constants.table) -> torch.Tensor:
+                  data: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     """Shared body of the byte-layout wrappers: (kin, N) -> (mout, N), or
     (B, kin, C) -> (B, mout, C), uint8, by the kernel ``name`` on a CUDA
     tensor (any N; rows and the stripe axis may be strided, bytes within a
-    chunk contiguous), with ``tables(consts, device)`` as its constants;
-    by ``plain`` on a CPU tensor."""
+    chunk contiguous), with the field tables as its constants; by ``plain``
+    on a CPU tensor."""
     if data.dtype != torch.uint8 or data.ndim not in (2, 3):
         raise TypeError(f"expected 2-D or 3-D uint8, got {data.dtype} "
                         f"{tuple(data.shape)}")
@@ -563,7 +569,7 @@ def _bytes_launch(name: str, source: str, plain, consts: GF2Constants,
         nseg, seg = 1, data.shape[1]
         in_row, in_seg = data.stride(0), 0
         out_row, out_seg = out.stride(0), 0
-    table = tables(consts, data.device)
+    table = consts.fields(data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = c_entry(source, name, _BYTE_ARGS)(
@@ -596,8 +602,8 @@ def gf2_apply_words(consts: GF2Constants, words: torch.Tensor,
     a CPU tensor, at any tile."""
     _check_tile(tile)
     return _words_launch("gf2_apply_words", KERNEL_SOURCE,
-                         gf2_apply_words_plain, consts, words, out, tile,
-                         GF2Constants.fields)
+                         gf2_apply_words_plain, consts, words, out,
+                         GF2Constants.fields, tile)
 
 
 def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
@@ -607,7 +613,7 @@ def gf2_apply_u8(consts: GF2Constants, data: torch.Tensor,
     parity rows of an encode output.  The plain version for a CPU
     tensor."""
     return _bytes_launch("gf2_apply_u8", KERNEL_SOURCE, gf2_apply_u8_plain,
-                         consts, data, out, GF2Constants.fields)
+                         consts, data, out)
 
 
 def gf2_apply_words_cmp(consts: GF2Constants, words: torch.Tensor,
@@ -617,24 +623,26 @@ def gf2_apply_words_cmp(consts: GF2Constants, words: torch.Tensor,
     tensor."""
     _require_unblocked("gf2_apply_words_cmp", consts)
     return _words_launch("gf2_apply_words_cmp", VARIANT_SOURCE,
-                         gf2_apply_words_cmp_plain, consts, words, out)
+                         gf2_apply_words_cmp_plain, consts, words, out,
+                         GF2Constants.table)
 
 
 def gf2_apply_words_split2(consts: GF2Constants, words: torch.Tensor,
                            out: torch.Tensor | None = None) -> torch.Tensor:
-    """B5b (enc_split2): B1's function for an unblocked matrix, each thread
-    owning two independent column groups.  The plain version for a CPU
-    tensor."""
+    """B5b (enc_split2): B1's function for an unblocked matrix, on the
+    field tables, each thread owning two independent 16-byte units.  The
+    plain version for a CPU tensor."""
     _require_unblocked("gf2_apply_words_split2", consts)
     return _words_launch("gf2_apply_words_split2", VARIANT_SOURCE,
-                         gf2_apply_words_split2_plain, consts, words, out)
+                         gf2_apply_words_split2_plain, consts, words, out,
+                         GF2Constants.fields)
 
 
 def gf2_apply_u8_split2(consts: GF2Constants, data: torch.Tensor,
                         out: torch.Tensor | None = None) -> torch.Tensor:
-    """B5c (enc_u8_split2): B2's function for an unblocked matrix in two
-    halves, the same layouts as gf2_apply_u8.  The plain version for a CPU
-    tensor."""
+    """B5c (enc_u8_split2): B2's function for an unblocked matrix, on the
+    field tables, two units per thread, the same layouts as gf2_apply_u8.
+    The plain version for a CPU tensor."""
     _require_unblocked("gf2_apply_u8_split2", consts)
     return _bytes_launch("gf2_apply_u8_split2", VARIANT_SOURCE,
                          gf2_apply_u8_split2_plain, consts, data, out)

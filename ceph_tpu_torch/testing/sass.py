@@ -25,6 +25,9 @@ MIN_BODY = 60
 
 _INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRA = re.compile(r"\bBRA\b.*?0x([0-9a-f]+)")
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
 def cuobjdump_path() -> str:
@@ -53,6 +56,24 @@ def loops(sass: str) -> dict[str, list[tuple[int, dict[str, int]]]]:
                     for t in body)
                 found.append((len(body), dict(ops.most_common())))
         out[name] = found
+    return out
+
+
+def registers(log: str) -> dict[str, dict[str, int]]:
+    """kernel name -> {"registers", "spill_stores", "spill_loads"} (bytes
+    for the spills) from ptxas's ``-v`` report of one compile."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None and (m := _SPILL.search(line)):
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        elif name is not None and (m := _USED.search(line)):
+            out[name]["registers"] = int(m.group(1))
     return out
 
 

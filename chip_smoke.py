@@ -8,22 +8,27 @@ CUDA toolkit.  It imports ``ceph_tpu_torch`` (never JAX, never ceph_tpu)
 and, phase by phase, raising on any failure:
 
 1. builds the CUDA kernels from ``ceph_tpu_torch/csrc`` (nvcc, all sources
-   at once) and prints the build seconds, ptxas's register report and each
-   kernel's loops with their instruction mix (``testing.sass``); fails if
-   the lab's unpack kernel (L2) lost its expansion or repack loop (a
-   compiler that folded the planes away would leave a copy), if a
-   field-table row loop (B1, B2, B3, B4) takes 70 or more instructions per
-   input word (per group for B3/B4; the bit-spread design they replaced),
-   or if B2's, B3's or B4's interior row loop calls a subroutine (the
-   64-bit division) or loads more than one 16-byte row per input row (a
-   byte-by-byte path inline);
+   at once) and prints the build seconds, each kernel's registers and
+   spills (ptxas) and its loops with their instruction mix
+   (``testing.sass``); fails if the lab's unpack kernel (L2) lost its
+   expansion or repack loop (a compiler that folded the planes away would
+   leave a copy), if a field-table row loop (B1, B2, B3, B4, B5b, B5c)
+   takes 70 or more instructions per input word (per group for B3/B4; the
+   bit-spread design they replaced), if B2's, B3's, B4's or B5c's interior
+   row loop calls a subroutine (the 64-bit division) or loads more than
+   one 16-byte row per unit and input row (a byte-by-byte path inline), or
+   if B1's or B2's row loop or registers moved from their field-table
+   redesign's (the split2 kernels share their kernel body);
 2. prints the card (torch's name, nvidia-smi's name and power limit);
 3. holds each kernel against its plain PyTorch version on the card, exact
    (``torch.equal``): the dense kernels at the headline k=8 m=4 encode, a
    4-erasure decode matrix, a ragged length and the w=16 / w=32 packet
    matrices; the encode-variant kernels at the headline encode, the decode
-   matrix, a ragged length, a 32 x 32 matrix at the variants' gate
-   (mout*kin = 1024) and, for the byte one, the (B, k, C) batch; the lab's
+   matrix, a ragged length (the split2 kernels' last block with only its
+   first half live), a length whose last block has both halves live, a 32
+   x 32 matrix at the variants' gate (mout*kin = 1024), inputs 4 bytes off
+   16-byte alignment and, for the byte ones, the (B, k, C) batch, at the
+   gate and at C = 1001 with a base 4 bytes off; the lab's
    copy kernel at the headline and a ragged length; B1 at each tile of the
    lab's sweep (headline, ragged, the blocked w=32 matrix); the lab's bit
    kernels at the headline and ragged shapes (L2 on words, L3 on the lab's
@@ -56,13 +61,15 @@ and, phase by phase, raising on any failure:
    headline repair (512 stripes x 64 KiB chunks), beside the dense byte
    kernel on the same operator, and the paired kernel at the k=16 repair
    (1024 stripes x 16 KiB chunks); the variant kernels at the headline;
-   the copy kernel beside its bound and ``torch.bitwise_xor``; B1 at the
-   four tiles; B1 beside B5a and the bit-spread B1's time; B2, B3 and B4
-   beside their bit-spread times; L2 beside ``x.clone()`` and L3 beside
-   ``torch._int_mm``; the entries around them, the CLAY k=16 repair entry
-   beside its gather plus B4; the lab's roof_copy step once more through
-   the old timer (CUDA events around steps issued from Python), beside the
-   device loop's reading and L1's kernel-alone time;
+   the copy kernel beside its bound and ``torch.bitwise_xor``, the two
+   timed in turn in one loop; B1 against B5b and B2 against B5c (one row
+   load in flight per thread against two) in one loop, encode and decode;
+   B1 at the four tiles; B1 beside B5a and the bit-spread B1's time;
+   B2-B5c beside their bit-spread times; L2 beside ``x.clone()`` and L3
+   beside ``torch._int_mm``; the entries around them, the CLAY k=16 repair
+   entry beside its gather plus B4; the lab's roof_copy step once more
+   through the old timer (CUDA events around steps issued from Python),
+   beside the device loop's reading and L1's kernel-alone time;
 6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -120,6 +127,18 @@ B3_OLD_US = 157.17
 B4_OLD_US = 143.19
 # L2's expansion and repack loops each cover one 16-word unit.
 L2_UNIT_WORDS = 16
+# B1's and B2's row loops and registers since their field-table redesign
+# (SASS instructions per iteration, ptxas registers; chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W), which the shared kernel body of the
+# split2 variants must leave as they are.
+B1_LOOP, B1_REGS = 162, 64
+B2_LOOP, B2_REGS = 252, 80
+# B5b's and B5c's last times on the bit spread, at the headline encode
+# (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W).
+B5B_OLD_US = 65.28
+B5C_OLD_US = 67.69
+# Rounds of the interleaved timing loops (B1/B5b, B2/B5c; L1/bitwise_xor).
+INTERLEAVED_ROUNDS = 6
 
 
 def log(*args) -> None:
@@ -193,10 +212,13 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = cuda_build.build(cuda_build.SOURCES)
     log(f"[build] {secs} wall {time.perf_counter() - t0:.2f}s")
+    regs = {}
     for name in cuda_build.SOURCES:
-        for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, r in sass.registers(cuda_build.build_log(name)).items():
+            regs[kernel] = r
+            log(f"[build] {name}: {kernel}: {r.get('registers')} registers, "
+                f"spill stores {r.get('spill_stores')} B, spill loads "
+                f"{r.get('spill_loads')} B")
         for line in sass.report(name):
             log(f"[sass] {line}")
     # L2 must keep its work: a loop storing the int8 planes and a loop
@@ -220,7 +242,9 @@ def main() -> int:
     # output rows (B3/B4: a group's 4 slots), 3 prmt per (word, row).  B1
     # keeps one loop of one row for interior and edge units; B2, B3 and B4
     # run an interior-only loop of two rows, which must hold one 16-byte
-    # load per row and no call.
+    # load per row and no call.  The split2 kernels apply one row to each
+    # of two units per iteration: B5b in one loop that tests each unit per
+    # row, B5c in an interior-only loop (one 16-byte load per unit-row).
     field_kernels = {
         # label: (source, mangled-name test, interior-only row loop)
         "B1 production": ("gf2_apply", lambda n: "gf2_words_kernel" in n
@@ -233,22 +257,31 @@ def main() -> int:
         "B3 words": ("gf2_grouped", lambda n: "WordIOELb0E" in n, True),
         "B4 bytes": ("gf2_grouped", lambda n: "ByteIOELb1E" in n, True),
         "B4 words": ("gf2_grouped", lambda n: "WordIOELb1E" in n, True),
+        "B5b": ("gf2_variants", lambda n: "gf2_words_kernel" in n
+                and "WordIO" in n, False),
+        "B5c": ("gf2_variants", lambda n: "gf2_words_kernel" in n
+                and "ByteIO" in n, True),
     }
     row_loops = {}
+    loop_len = {}
+    kernel_of = {}
     for label, (source, match, interior) in field_kernels.items():
-        found = [f for n, f in sass.kernel_loops(source).items() if match(n)]
+        found = {n: f for n, f in sass.kernel_loops(source).items()
+                 if match(n)}
         if len(found) != 1:
             raise AssertionError(f"{label}: {len(found)} kernels match")
-        loop = sass.row_loop(found[0], FIELD_LOOP_PRMT)
+        (kernel_of[label], found), = found.items()
+        loop = sass.row_loop(found, FIELD_LOOP_PRMT)
         if loop is None:
             raise AssertionError(f"no field-table loop in {label}: {found}")
         length, ops = loop
-        rows = ops["PRMT"] // FIELD_LOOP_PRMT   # input rows per iteration
+        rows = ops["PRMT"] // FIELD_LOOP_PRMT   # unit-rows per iteration
         per_word = length / (B1_LOOP_WORDS * rows)
         row_loops[label] = per_word
-        log(f"[sass] {label}: loops of {[n for n, _ in found[0]]} "
-            f"instructions; row loop {length} for {rows} input row(s) = "
-            f"{per_word:.2f} per input word"
+        loop_len[label] = length
+        log(f"[sass] {label}: loops of {[n for n, _ in found]} "
+            f"instructions; row loop {length} for {rows} unit-row(s) "
+            f"(16-byte unit x input row) = {per_word:.2f} per input word"
             f"{' and group' if label.startswith(('B3', 'B4')) else ''} "
             f"(PRMT {ops.get('PRMT', 0)}, LDG {ops.get('LDG', 0)}, "
             f"CALL {ops.get('CALL', 0)})")
@@ -263,6 +296,19 @@ def main() -> int:
                                  f"{rows} rows: a division or a byte path "
                                  f"is inline")
     b1_per_word = row_loops["B1 production"]
+    for label, want_loop, want_regs in (("B1 production", B1_LOOP, B1_REGS),
+                                        ("B2", B2_LOOP, B2_REGS)):
+        got = regs[kernel_of[label]].get("registers")
+        log(f"[sass] {label} unchanged by the shared kernel body: row loop "
+            f"{loop_len[label]} (was {want_loop}), {got} registers (was "
+            f"{want_regs})")
+        if (loop_len[label], got) != (want_loop, want_regs):
+            raise AssertionError(f"{label}'s row loop or registers moved")
+    for label in ("B5b", "B5c"):
+        r = regs[kernel_of[label]]
+        log(f"[build] {label} (two units per thread): {r.get('registers')} "
+            f"registers, spills {r.get('spill_stores')}/"
+            f"{r.get('spill_loads')} B; row loop {loop_len[label]}")
 
     # -- 2. the card -------------------------------------------------------
     smi = perf_lab.nvidia_smi_line()
@@ -332,23 +378,40 @@ def main() -> int:
     # The encode-variant kernels (unblocked matrices only) and the lab's
     # copy kernel.
     edge = rng.integers(0, 256, GATE_EDGE, dtype=np.uint8)
+    # The split2 kernels' last block of 512 units: a ragged length leaves
+    # 145 word units (37 byte units) there, half 0 live only; 15537 words
+    # and 62151 bytes leave 301 units each, both halves live, the last
+    # unit partial.
     vcases = [
-        # (label, coefficient matrix, words shape or None, bytes shape)
-        ("headline encode k=8 m=4", gen[K:], (K, n_bytes // 4), (K, n_bytes)),
-        ("decode 4 erasures", dec, (K, n_bytes // 4), (K, n_bytes)),
-        ("ragged length", gen[K:], (K, 1_000_003), (K, 1_000_003)),
-        ("gate edge 32x32", edge, (32, 1 << 18), (32, (1 << 20) + 5)),
-        ("(B, k, C) batch", gen[K:], None, (STRIPES, K, CHUNK)),
-        ("(B, k, C) batch, gate edge", edge, None, (2048, 32, 4096 + 3)),
+        # (label, coefficient matrix, words shape or None, bytes shape,
+        #  base offset in bytes of both inputs)
+        ("headline encode k=8 m=4", gen[K:], (K, n_bytes // 4), (K, n_bytes),
+         0),
+        ("decode 4 erasures", dec, (K, n_bytes // 4), (K, n_bytes), 0),
+        ("ragged length", gen[K:], (K, 1_000_003), (K, 1_000_003), 0),
+        ("last block, both halves live", gen[K:], (K, 15_537), (K, 62_151),
+         0),
+        ("gate edge 32x32", edge, (32, 1 << 18), (32, (1 << 20) + 5), 0),
+        ("base 4 bytes off", dec, (K, 1 << 18), (K, 1 << 20), 4),
+        ("(B, k, C) batch", gen[K:], None, (STRIPES, K, CHUNK), 0),
+        ("(B, k, C) batch, gate edge", edge, None, (2048, 32, 4096 + 3), 0),
+        ("(B, k, C) batch, C = 1001, base 4 bytes off", gen[K:], None,
+         (4096, K, 1001), 4),
     ]
-    for label, coeff, wshape, bshape in vcases:
+
+    def rand_at(shape, base) -> torch.Tensor:
+        """Random bytes of ``shape`` starting ``base`` bytes past a 16-byte
+        boundary (torch allocations are 16-byte aligned)."""
+        return rand_u8((int(np.prod(shape)) + base,))[base:].view(shape)
+
+    for label, coeff, wshape, bshape, base in vcases:
         consts = ck.ShardApply(coeff).consts
         if not ck.variant_applies(consts.kin, consts.mout):
             raise AssertionError(f"{label} is not an unblocked matrix")
         runs = []
         if wshape is not None:
             words = ck.bytes_to_words(
-                rand_u8(wshape[:-1] + (wshape[-1] * 4,)))
+                rand_at(wshape[:-1] + (wshape[-1] * 4,), base))
             runs += [(name, fn, plain, consts.plain_bm32(dev), words)
                      for name, fn, plain in (
                          ("gf2_apply_words_cmp", ck.gf2_apply_words_cmp,
@@ -357,7 +420,7 @@ def main() -> int:
                           ck.gf2_apply_words_split2_plain))]
         runs.append(("gf2_apply_u8_split2", ck.gf2_apply_u8_split2,
                      ck.gf2_apply_u8_split2_plain, consts.plain_bm(dev),
-                     rand_u8(bshape)))
+                     rand_at(bshape, base)))
         for name, fn, plain, mat, arg in runs:
             got = fn(consts, arg)
             ref = plain(mat, arg)
@@ -905,14 +968,60 @@ def main() -> int:
             f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
             f"bound; plain {p_s * 1e3:.3f} ms; main-path launches "
             f"{main_launches[name]}")
-    # L1's yardstick: one PyTorch call computing the same function.
-    xor_s = min(time_it(lambda: torch.bitwise_xor(words, 1)),
-                time_it(lambda: torch.bitwise_xor(words, 1)))
+    def interleaved(fns: dict) -> dict:
+        """label -> its INTERLEAVED_ROUNDS readings (``time_it``), the
+        labels timed in turn, forward in even rounds and backward in odd
+        ones, so that a drift of the card's clock falls on all alike."""
+        got = {label: [] for label in fns}
+        order = list(fns)
+        for r in range(INTERLEAVED_ROUNDS):
+            for label in (order if r % 2 == 0 else order[::-1]):
+                got[label].append(time_it(fns[label]))
+        return got
+
+    def versus(label, a, b, got) -> tuple[float, float]:
+        """Log and return the best readings of a and b from one
+        ``interleaved`` loop, with the rounds in which b was faster."""
+        ra, rb = got[a], got[b]
+        wins = sum(y < x for x, y in zip(ra, rb))
+        log(f"[time] interleaved {label}: {a} best {min(ra) * 1e6:.2f} us "
+            f"(readings {[round(x * 1e6, 2) for x in ra]}), {b} best "
+            f"{min(rb) * 1e6:.2f} us (readings "
+            f"{[round(x * 1e6, 2) for x in rb]}): {b}/{a} = "
+            f"{min(rb) / min(ra):.4f}, {b} faster in {wins} of "
+            f"{len(ra)} rounds")
+        return min(ra), min(rb)
+
+    # L1's yardstick: one PyTorch call computing the same function, timed
+    # in turn with L1.
+    l1_best, xor_s = versus("copy roof, headline (8, 2^21) words",
+                         "roof_copy_xor", "torch.bitwise_xor", interleaved({
+                             "roof_copy_xor":
+                                 lambda: perf_lab.roof_copy_xor(words),
+                             "torch.bitwise_xor":
+                                 lambda: torch.bitwise_xor(words, 1)}))
     library["roof_copy_xor"] = xor_s
     log(f"[time] torch.bitwise_xor(words, 1), the copy roof's library call: "
         f"{xor_s * 1e6:.2f} us = {100 * copy_s / xor_s:.1f}% of bound; "
-        f"measured copy ceiling {2 * data_bytes / times['roof_copy_xor'][0] / 1e12:.3f} "
-        f"TB/s (L1) against the data sheet's {HBM_BYTES_PER_S / 1e12:.2f}")
+        f"measured copy ceiling {2 * data_bytes / l1_best / 1e12:.3f} TB/s "
+        f"(L1) against the data sheet's {HBM_BYTES_PER_S / 1e12:.2f}")
+    # One row load in flight per thread (B1, B2) against two (the split2
+    # kernels, two units per thread), same bytes, one loop.
+    split2_pairs = interleaved({
+        "B1 encode": lambda: ck.gf2_apply_words(enc_ap.consts, words),
+        "B5b encode": lambda: ck.gf2_apply_words_split2(enc_ap.consts, words),
+        "B1 decode": lambda: ck.gf2_apply_words(dec_ap.consts, dec_words),
+        "B5b decode": lambda: ck.gf2_apply_words_split2(dec_ap.consts,
+                                                        dec_words),
+        "B2 encode": lambda: ck.gf2_apply_u8(enc_ap.consts, stream),
+        "B5c encode": lambda: ck.gf2_apply_u8_split2(enc_ap.consts, stream),
+        "B2 decode": lambda: ck.gf2_apply_u8(dec_ap.consts, dec_stream),
+        "B5c decode": lambda: ck.gf2_apply_u8_split2(dec_ap.consts,
+                                                     dec_stream)})
+    for one, two in (("B1", "B5b"), ("B2", "B5c")):
+        for op in ("encode", "decode"):
+            versus(f"{op}, headline bytes", f"{one} {op}", f"{two} {op}",
+                   split2_pairs)
     # L2's yardstick: x.clone(), the one PyTorch call computing its
     # function (a copy).  L3's: torch._int_mm, int8 x int8 -> int32 through
     # cuBLASLt, on B as it lies if it takes that layout, else on a
@@ -932,7 +1041,7 @@ def main() -> int:
         f"({b1_per_word:.2f} SASS instructions per input word) against B5a "
         f"{b5a_s * 1e6:.2f} us in this run ({b1_s / b5a_s:.3f}x) and the "
         f"bit-spread B1's {B1_OLD_US} us ({b1_s * 1e6 / B1_OLD_US:.3f}x)")
-    # B2, B3 and B4 on field tables beside their bit-spread times and B1.
+    # B2-B5c on field tables beside their bit-spread times and B1.
     for label, sec, old, per_word in (
             ("B2 field tables, headline encode bytes",
              row_s["gf2_apply_u8", "encode bytes"], B2_OLD_US,
@@ -946,7 +1055,13 @@ def main() -> int:
              row_loops["B3 bytes"]),
             ("B4 field tables, CLAY k=16 repair", times[
                 "gf2_apply_grouped_paired"][0], B4_OLD_US,
-             row_loops["B4 bytes"])):
+             row_loops["B4 bytes"]),
+            ("B5b field tables, two units, headline encode words",
+             row_s["gf2_apply_words_split2", "encode words"], B5B_OLD_US,
+             row_loops["B5b"]),
+            ("B5c field tables, two units, headline encode bytes",
+             row_s["gf2_apply_u8_split2", "encode bytes"], B5C_OLD_US,
+             row_loops["B5c"])):
         log(f"[time] {label}: {sec * 1e6:.2f} us ({per_word:.2f} SASS "
             f"instructions per input word) against the bit spread's {old} us "
             f"({sec * 1e6 / old:.3f}x) and B1's {b1_s * 1e6:.2f} us in this "

@@ -396,3 +396,64 @@ def test_grouped_kernels_byte_edges(cuda, case, edge):
         assert fn(plan, arg, out=out) is out
         assert ck.LAUNCHES[name] == before + 1
         assert torch.equal(out, plain(plan, arg.contiguous())), name
+
+
+# The split2 kernels (two units per thread, 512 units per block): lengths
+# whose last block has only its first half live (2560 words, 9216 bytes),
+# both halves (3328 words, 13312 bytes), a ragged last unit and a single
+# ragged unit; rows strided in and out, bases 16-byte aligned or 4 bytes
+# off; and the byte view's edges
+SPLIT2_MATRICES = ("encode", "random_32x32", "one_row_40")
+
+
+@pytest.mark.parametrize("offset", [4, 5], ids=["aligned", "base4"])
+@pytest.mark.parametrize("n4", [2560, 3328, 3257, 3])
+@pytest.mark.parametrize("matrix", SPLIT2_MATRICES)
+def test_split2_words_kernel_strided_ragged(cuda, matrix, n4, offset):
+    """B5b on field tables, its output written through the same strided
+    layout (nothing else written)."""
+    consts = ck.ShardApply(B1_MATRICES[matrix]()).consts
+    big = _int32((consts.kin, n4 + 36), n4, cuda)
+    words = big[:, offset:offset + n4]         # row stride n4 + 36
+    out_big = torch.zeros((consts.mout, n4 + 36), dtype=torch.int32,
+                          device=cuda)
+    out = out_big[:, offset:offset + n4]
+    before = ck.LAUNCHES["gf2_apply_words_split2"]
+    got = ck.gf2_apply_words_split2(consts, words, out=out)
+    assert ck.LAUNCHES["gf2_apply_words_split2"] == before + 1
+    assert got is out
+    assert torch.equal(out, ck.gf2_apply_words_split2_plain(
+        consts.plain_bm32(cuda), words.contiguous()))
+    assert int(out_big[:, :offset].abs().sum()) == 0
+    assert int(out_big[:, offset + n4:].abs().sum()) == 0
+
+
+SPLIT2_BYTE_EDGES = BYTE_EDGES + [("stream_half0_last", (9216,), 0, 0),
+                                  ("stream_both_last", (13312,), 0, 0)]
+
+
+@pytest.mark.parametrize("edge", SPLIT2_BYTE_EDGES,
+                         ids=[e[0] for e in SPLIT2_BYTE_EDGES])
+@pytest.mark.parametrize("coeff", ["encode", "decode", "random_32x32"])
+def test_split2_u8_kernel_byte_edges(cuda, edge, coeff):
+    """B5c on field tables at every edge of the byte view and at both kinds
+    of last block, its output written through the same strided, offset
+    layout (nothing else written)."""
+    _, shape, base, pad = edge
+    mat = B1_MATRICES["random_32x32"]() if coeff == "random_32x32" else \
+        generator_matrix("reed_sol_van", 8, 4)[8:] if coeff == "encode" \
+        else np.random.default_rng(7).integers(1, 256, (4, 8),
+                                               dtype=np.uint8)
+    consts = ck.ShardApply(mat).consts
+    data = _byte_edge(shape, consts.kin, base, pad, 11, cuda)
+    out = _byte_edge(shape, consts.mout, base, pad, 12, cuda)
+    padded = out.as_strided(out.shape[:-1] + (out.shape[-1] + pad,),
+                            out.stride())
+    keep = padded.clone()
+    before = ck.LAUNCHES["gf2_apply_u8_split2"]
+    got = ck.gf2_apply_u8_split2(consts, data, out=out)
+    assert ck.LAUNCHES["gf2_apply_u8_split2"] == before + 1
+    assert got is out
+    assert torch.equal(out, ck.gf2_apply_u8_split2_plain(
+        consts.plain_bm(cuda), data.contiguous()))
+    assert torch.equal(padded[..., out.shape[-1]:], keep[..., out.shape[-1]:])
