@@ -100,34 +100,42 @@ def roof_copy_xor_plain(words: torch.Tensor) -> torch.Tensor:
     return words ^ 1
 
 
+# in, out, n, stream
+COPY_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p]
+
+
 def roof_copy_xor(words: torch.Tensor,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """L1: int32 ``words ^ 1``, any shape, contiguous.  Launches the copy
-    kernel for a CUDA tensor; the plain version for a CPU tensor."""
+    kernel for a CUDA tensor; the plain version for a CPU tensor.
+
+    Its time is the copy ceiling, read against a library call in an eager
+    loop, so the enqueue is kept short: the raw current stream, and the
+    device switched only when it is not already the current one."""
     if words.dtype != torch.int32:
         raise TypeError(f"expected int32 words, got {words.dtype}")
-    if words.device.type == "cpu":
+    dev = words.device
+    if dev.type == "cpu":
         res = roof_copy_xor_plain(words)
         if out is None:
             return res
         out.copy_(res)
         return out
-    if words.device.type != "cuda":
-        raise ValueError(f"roof_copy_xor: no kernel for device "
-                         f"{words.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"roof_copy_xor: no kernel for device {dev}")
     if not words.is_contiguous():
         raise ValueError("roof_copy_xor: words must be contiguous")
     if out is None:
         out = torch.empty_like(words)
     if (out.shape != words.shape or out.dtype != torch.int32
-            or out.device != words.device or not out.is_contiguous()):
+            or out.device != dev or not out.is_contiguous()):
         raise ValueError("roof_copy_xor: bad output tensor")
-    fn = ck.c_entry(LAB_SOURCE, "roof_copy_xor",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_void_p])
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = fn(words.data_ptr(), out.data_ptr(), words.numel(), stream)
+    fn = ck.c_entry(LAB_SOURCE, "roof_copy_xor", COPY_ARGS)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
+        rc = fn(words.data_ptr(), out.data_ptr(), words.numel(),
+                torch._C._cuda_getCurrentRawStream(dev.index))
     ck.check_rc("roof_copy_xor", rc)
     ck.count_launch(LAUNCHES, "roof_copy_xor")
     return out

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 
@@ -29,10 +28,9 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.common import cuda_build
-from ceph_tpu_torch.ec import benchmark
 from ceph_tpu_torch.ec import cuda_kernels as ck
 from ceph_tpu_torch.ec.matrix import generator_matrix
-from ceph_tpu_torch.testing import perf_lab, sass
+from ceph_tpu_torch.testing import builds, perf_lab, sass
 
 K, M = 8, 4
 N_BYTES = 16384 * 512          # one shard row of the headline batch
@@ -188,65 +186,35 @@ BUILDS = {
 def sources(build: str) -> dict[str, str]:
     """csrc file name -> text of ``build``; raises if an edit's old text is
     not in its file exactly once."""
-    files = {p.name: p.read_text() for p in cuda_build.CSRC_DIR.iterdir()
-             if p.suffix in (".cu", ".cuh")}
-    for name, old, new in BUILDS[build]:
-        if files[name].count(old) != 1:
-            raise ValueError(f"{build}: edit of {name} does not apply")
-        files[name] = files[name].replace(old, new)
-    return files
-
-
-def compile_builds(builds) -> dict[str, tuple[str, str]]:
-    """build -> (library path, nvcc output), every nvcc started at once."""
-    procs = {}
-    for build in builds:
-        d = BUILD_DIR / build
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for name, text in sources(build).items():
-            (d / name).write_text(text)
-        lib = d / "gf2_variants.so"
-        procs[build] = (lib, subprocess.Popen(
-            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-             str(d / "gf2_variants.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for build, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for build {build}:\n{log}")
-        out[build] = (str(lib), log)
-    return out
+    return builds.sources(BUILDS[build], build)
 
 
 def kernel_report(lib: str, log: str) -> dict:
     """Registers, spills and SASS row loop of the two split2 kernels."""
-    regs = sass.registers(log)
     dump = subprocess.run([sass.cuobjdump_path(), "-sass", lib],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     report = {}
     for label, view in (("B5b", "WordIO"), ("B5c", "ByteIO")):
-        names = [n for n in regs if "gf2_words_kernel" in n and view in n]
-        if len(names) != 1:
-            raise AssertionError(f"{label}: kernels {names}")
-        loop = sass.row_loop(sass.loops(dump)[names[0]], 2 * FIELD_LOOP_PRMT)
+        name, regs = builds.one_kernel(
+            log, label, lambda n: "gf2_words_kernel" in n and view in n)
+        loop = sass.row_loop(sass.loops(dump)[name], 2 * FIELD_LOOP_PRMT)
         length, ops = loop if loop else (None, {})
-        report[label] = {**regs[names[0]], "row_loop": length,
+        report[label] = {**regs, "row_loop": length,
                          "PRMT": ops.get("PRMT", 0),
                          "LDG": ops.get("LDG", 0), "CALL": ops.get("CALL", 0)}
     return report
 
 
 def main(argv=None) -> int:
-    builds = (argv if argv is not None else sys.argv[1:]) or list(BUILDS)
+    names = (argv if argv is not None else sys.argv[1:]) or list(BUILDS)
     if not torch.cuda.is_available():
         print("split2_builds: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     cuda_build.build(["gf2_apply"])
-    libs = compile_builds(builds)
+    libs = builds.compile_builds({b: BUILDS[b] for b in names},
+                                 "gf2_variants", BUILD_DIR)
     consts = ck.ShardApply(generator_matrix("reed_sol_van", K, M)[K:]).consts
     fields = consts.fields(dev)
     data = torch.from_numpy(np.random.default_rng(7).integers(
@@ -296,12 +264,8 @@ def main(argv=None) -> int:
         kernels[f"{build} B5c"] = call(
             entry(lib, "gf2_apply_u8_split2", byte_types), bytes_args, out_b,
             want_b, f"{build} B5c")
-    best = {}
-    order = list(kernels)
-    for r in range(ROUNDS):
-        for label in (order if r % 2 == 0 else order[::-1]):
-            s = benchmark.cuda_seconds_per_call(kernels[label], 20, 5)
-            best[label] = min(best.get(label, s), s)
+    best = {label: min(readings) for label, readings in
+            builds.interleaved(kernels, ROUNDS).items()}
     card = perf_lab.nvidia_smi_line()
     print(json.dumps({"card": card, "B1_us": best["B1"] * 1e6,
                       "B2_us": best["B2"] * 1e6}))

@@ -29,7 +29,9 @@ and, phase by phase, raising on any failure:
    x 32 matrix at the variants' gate (mout*kin = 1024), inputs 4 bytes off
    16-byte alignment and, for the byte ones, the (B, k, C) batch, at the
    gate and at C = 1001 with a base 4 bytes off; the lab's
-   copy kernel at the headline and a ragged length; B1 at each tile of the
+   copy kernel at the headline, a ragged length and its edges (input and
+   output 4 bytes off 16-byte alignment, off by different amounts, n = 1
+   and 3, under one block, one block and four); B1 at each tile of the
    lab's sweep (headline, ragged, the blocked w=32 matrix); the lab's bit
    kernels at the headline and ragged shapes (L2 on words, L3 on the lab's
    bm32 with 0/1 bits and on asymmetric int8 over the whole range, n % 8 !=
@@ -62,7 +64,8 @@ and, phase by phase, raising on any failure:
    kernel on the same operator, and the paired kernel at the k=16 repair
    (1024 stripes x 16 KiB chunks); the variant kernels at the headline;
    the copy kernel beside its bound and ``torch.bitwise_xor``, the two
-   timed in turn in one loop; B1 against B5b and B2 against B5c (one row
+   and B1's encode timed in turn in one loop (the measured copy ceiling,
+   and B1's rate against it); B1 against B5b and B2 against B5c (one row
    load in flight per thread against two) in one loop, encode and decode;
    B1 at the four tiles; B1 beside B5a and the bit-spread B1's time;
    B2-B5c beside their bit-spread times; L2 beside ``x.clone()`` and L3
@@ -139,6 +142,8 @@ B5B_OLD_US = 65.28
 B5C_OLD_US = 67.69
 # Rounds of the interleaved timing loops (B1/B5b, B2/B5c; L1/bitwise_xor).
 INTERLEAVED_ROUNDS = 6
+# The copy kernel's block: 1024 threads of one 16-byte unit (lab_copy.cu).
+L1_BLOCK_WORDS = 1024 * 4
 
 
 def log(*args) -> None:
@@ -432,13 +437,43 @@ def main() -> int:
                 raise AssertionError(f"{name} != plain version at {label}")
             errs[name] = max(errs[name], max_err(got, ref))
     errs["roof_copy_xor"] = 0
-    for label, shape in (("headline (8, 2^21) words", (K, n_bytes // 4)),
-                         ("ragged (8, 1000003) words", (K, 1_000_003))):
-        words = ck.bytes_to_words(rand_u8(shape[:-1] + (shape[-1] * 4,)))
-        got = perf_lab.roof_copy_xor(words)
+
+    def words_at(n, offset) -> torch.Tensor:
+        """n random int32 words starting ``offset`` words past a 16-byte
+        boundary."""
+        return ck.bytes_to_words(rand_u8((4 * (n + offset),)))[offset:]
+
+    # L1 at the headline and a ragged length, and at its edges: input and
+    # output 4 bytes off 16-byte alignment (head, 16-byte units, tail), off
+    # by different amounts (every word on the plain path), n = 1 and 3
+    # (plain words only), under one block's units, one block and a
+    # multiple of it.
+    blk = L1_BLOCK_WORDS
+    l1_cases = [
+        ("headline (8, 2^21) words", (K, n_bytes // 4), 0, 0),
+        ("ragged (8, 1000003) words", (K, 1_000_003), 0, 0),
+        ("ragged, input and output 4 bytes off", (1_000_003,), 1, 1),
+        ("ragged, input 4 and output 8 bytes off", (1_000_003,), 1, 2),
+        ("ragged, input aligned and output 12 bytes off", (1_000_003,), 0,
+         3),
+        ("n = 1", (1,), 0, 0),
+        ("n = 1, input and output 12 bytes off", (1,), 3, 3),
+        ("n = 3", (3,), 0, 0),
+        ("n = 3, input and output 4 bytes off", (3,), 1, 1),
+        (f"n = {blk - 48}, under one block", (blk - 48,), 0, 0),
+        (f"n = {blk - 48}, input and output 8 bytes off", (blk - 48,), 2, 2),
+        (f"n = {blk}, one block", (blk,), 0, 0),
+        (f"n = {4 * blk}, four blocks", (4 * blk,), 0, 0),
+        (f"n = {4 * blk}, input 4 and output 12 bytes off", (4 * blk,), 1, 3),
+    ]
+    for label, shape, a, b in l1_cases:
+        n = int(np.prod(shape))
+        words = words_at(n, a).view(shape)
+        out = words_at(n, b).view(shape)
+        got = perf_lab.roof_copy_xor(words, out=out)
         ref = perf_lab.roof_copy_xor_plain(words)
         torch.cuda.synchronize()
-        ok = torch.equal(got, ref)
+        ok = got is out and torch.equal(got, ref)
         log(f"[exact] roof_copy_xor {label} -> equal={ok}")
         if not ok:
             raise AssertionError(f"roof_copy_xor != plain version at {label}")
@@ -811,7 +846,8 @@ def main() -> int:
     # the per-byte bit-plane contraction: (8m x 8k) 0/1 matrix x 8k bits per
     # byte column, on int8 tensor cores
     ops = 2 * bm.shape[0] * bm.shape[1] * n_bytes
-    bound_s, bound_by = bound(data_bytes + par_bytes + table_bytes, ops)
+    b1_bytes = data_bytes + par_bytes + table_bytes
+    bound_s, bound_by = bound(b1_bytes, ops)
     log(f"[bound] jax_rs headline: {data_bytes} B in + {par_bytes} B out + "
         f"{table_bytes} B table, {ops} int8 ops -> bound "
         f"{bound_s * 1e6:.2f} us ({bound_by})")
@@ -993,18 +1029,28 @@ def main() -> int:
         return min(ra), min(rb)
 
     # L1's yardstick: one PyTorch call computing the same function, timed
-    # in turn with L1.
+    # in turn with L1, and B1's encode in the same loop, so that B1's rate
+    # is read against the copy ceiling measured beside it.
+    copy_loop = interleaved({
+        "roof_copy_xor": lambda: perf_lab.roof_copy_xor(words),
+        "torch.bitwise_xor": lambda: torch.bitwise_xor(words, 1),
+        "B1 encode": lambda: ck.gf2_apply_words(enc_ap.consts, words)})
     l1_best, xor_s = versus("copy roof, headline (8, 2^21) words",
-                         "roof_copy_xor", "torch.bitwise_xor", interleaved({
-                             "roof_copy_xor":
-                                 lambda: perf_lab.roof_copy_xor(words),
-                             "torch.bitwise_xor":
-                                 lambda: torch.bitwise_xor(words, 1)}))
+                            "roof_copy_xor", "torch.bitwise_xor", copy_loop)
     library["roof_copy_xor"] = xor_s
+    ceiling = 2 * data_bytes / l1_best
+    b1_rate = b1_bytes / min(copy_loop["B1 encode"])
     log(f"[time] torch.bitwise_xor(words, 1), the copy roof's library call: "
         f"{xor_s * 1e6:.2f} us = {100 * copy_s / xor_s:.1f}% of bound; "
-        f"measured copy ceiling {2 * data_bytes / l1_best / 1e12:.3f} TB/s "
-        f"(L1) against the data sheet's {HBM_BYTES_PER_S / 1e12:.2f}")
+        f"measured copy ceiling {ceiling / 1e12:.3f} TB/s (L1) against the "
+        f"data sheet's {HBM_BYTES_PER_S / 1e12:.2f}; L1 "
+        f"{'no slower' if l1_best <= xor_s else 'slower'} than the library "
+        f"call")
+    log(f"[time] B1 encode in the copy roof's loop: best "
+        f"{min(copy_loop['B1 encode']) * 1e6:.2f} us, {b1_bytes} B at "
+        f"{b1_rate / 1e12:.3f} TB/s = {100 * b1_rate / ceiling:.1f}% of the "
+        f"measured copy ceiling, {100 * b1_rate / HBM_BYTES_PER_S:.1f}% of "
+        f"the data sheet's")
     # One row load in flight per thread (B1, B2) against two (the split2
     # kernels, two units per thread), same bytes, one loop.
     split2_pairs = interleaved({

@@ -191,6 +191,25 @@ def test_roof_copy_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, perf_lab.roof_copy_xor_plain(words))
 
 
+# L1's edges: n of 1 and 3 words (head or tail only), 4000 (under one
+# block's 1024 units of 4 words), 4096 and 16384 (whole blocks); input and
+# output offsets in words past 16-byte alignment, equal (head, units, tail)
+# or different (every word on the plain path).
+@pytest.mark.parametrize("n", [1, 3, 4000, 4096, 16384, 1_000_003])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (1, 2), (0, 1),
+                                     (3, 0)])
+def test_roof_copy_kernel_edges(cuda, n, offsets):
+    from ceph_tpu_torch.testing import perf_lab
+
+    a, b = offsets
+    src = _int32((n + a,), n + a, cuda)[a:]
+    out = torch.zeros(n + b, dtype=torch.int32, device=cuda)[b:]
+    before = perf_lab.LAUNCHES["roof_copy_xor"]
+    assert perf_lab.roof_copy_xor(src, out=out) is out
+    assert perf_lab.LAUNCHES["roof_copy_xor"] == before + 1
+    assert torch.equal(out, perf_lab.roof_copy_xor_plain(src))
+
+
 def _int32(shape, seed, device):
     return torch.from_numpy(np.random.default_rng(seed).integers(
         -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).to(device)
