@@ -222,19 +222,24 @@ def column_table(bitmatrix: np.ndarray) -> np.ndarray:
 FIELDS = ((0, 3), (3, 3), (6, 2))
 
 
-def _byte_maps(bitmatrix: np.ndarray) -> np.ndarray:
-    """(8m, 8k) GF(2) bitmatrix -> (m, k, 256) uint8: entry [r, c, x] is
-    block (r, c) applied to the byte x, bit i = XOR_j BM[8r+i, 8c+j] *
-    bit j of x."""
+def _byte_maps(bitmatrix: np.ndarray, xs=None) -> np.ndarray:
+    """(8m, 8k) GF(2) bitmatrix -> (m, k, len(xs)) uint8: entry [r, c, t] is
+    block (r, c) applied to the byte x = xs[t] (all 256 bytes when xs is
+    None), bit i = XOR_j BM[8r+i, 8c+j] * bit j of x.  Built as the XOR of
+    the block's columns selected by the bits of x, so a matrix of 2^16
+    input rows (the CRC contraction) stays a few MiB."""
     B = np.asarray(bitmatrix, np.uint8)
     m8, k8 = B.shape
     B = B.reshape(m8 // 8, 8, k8 // 8, 8)               # (r, i, c, j)
-    x = np.arange(256, dtype=np.uint32)
-    xbits = ((x[:, None] >> np.arange(8, dtype=np.uint32)) & 1).astype(
-        np.uint8)                                       # (x, j)
-    out = np.einsum("ricj,xj->rcxi", B.astype(np.int64),
-                    xbits.astype(np.int64)) & 1         # (r, c, x, i)
-    return (out << np.arange(8)).sum(-1).astype(np.uint8)
+    col = np.zeros((m8 // 8, k8 // 8, 8), np.uint8)     # (r, c, j)
+    for i in range(8):
+        col |= B[:, i] << np.uint8(i)
+    xs = np.arange(256) if xs is None else np.asarray(xs)
+    out = np.zeros((m8 // 8, k8 // 8, xs.size), np.uint8)
+    for j in range(8):
+        sel = ((xs >> j) & 1).astype(bool)
+        out[:, :, sel] ^= col[:, :, j:j + 1]
+    return out
 
 
 def field_tables(bitmatrix: np.ndarray) -> np.ndarray:
@@ -246,10 +251,9 @@ def field_tables(bitmatrix: np.ndarray) -> np.ndarray:
     0-1 hold T0[v] = M(v) for v = 0..7 as bytes (T0[v] in byte v of the
     pair, little-endian), words 2-3 T1[v] = M(v << 3), word 4 T2[v] =
     M(v << 6) for v = 0..3: the byte pools prmt selects from."""
-    maps = _byte_maps(bitmatrix)                        # (m, k, 256)
     cols = []
     for shift, width in FIELDS:
-        entries = maps[:, :, np.arange(1 << width) << shift]
+        entries = _byte_maps(bitmatrix, np.arange(1 << width) << shift)
         cols.append(np.ascontiguousarray(entries).view("<u4"))
     return np.ascontiguousarray(np.concatenate(cols, axis=2))
 

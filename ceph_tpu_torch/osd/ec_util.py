@@ -8,20 +8,21 @@ Counterpart of ceph_tpu/osd/ec_util.py:
   of ECUtil::encode/decode, with stripes batched into one kernel launch.
   The helpers take numpy arrays or torch tensors and keep the kind they
   were given, so a device batch stays on its device.
-
-HashInfo (per-shard cumulative crc32c) is not ported yet: it needs the
-port's crc32c, which comes with the checksum slice.
+- HashInfo: per-shard cumulative crc32c (ECUtil::HashInfo, reference
+  osd/ECUtil.h), over the port's crc32c.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ceph_tpu_torch.common.crc32c import crc32c
 
-def _permute(x, order: tuple[int, ...]):
+
+def permute_axes(x, order: tuple[int, ...]):
     """Axis permutation of a numpy array or a tensor (a view either way)."""
     if isinstance(x, torch.Tensor):
         return x.permute(*order)
@@ -105,11 +106,60 @@ class StripeInfo:
         """(num_stripes, n, chunk_size) encoded batch -> (n, num_stripes
         * chunk_size) per-shard byte streams as one array or tensor."""
         b, n, c = chunks.shape
-        return _permute(chunks, (1, 0, 2)).reshape(n, b * c)
+        return permute_axes(chunks, (1, 0, 2)).reshape(n, b * c)
 
     def stack_shard_streams(self, streams, nstripes: int):
         """Inverse of shard_streams for the k data shards: (k, nstripes
         * chunk_size) streams -> flat logical bytes of nstripes stripes."""
         k = streams.shape[0]
-        return _permute(streams.reshape(k, nstripes, self.chunk_size),
+        return permute_axes(streams.reshape(k, nstripes, self.chunk_size),
                         (1, 0, 2)).reshape(-1)
+
+
+@dataclass
+class HashInfo:
+    """Per-shard cumulative crc32c + total size (ECUtil::HashInfo)."""
+
+    n: int
+    total_chunk_size: int = 0
+    cumulative_shard_hashes: list[int] = field(default_factory=list)
+
+    def __post_init__(self):
+        if not self.cumulative_shard_hashes:
+            self.cumulative_shard_hashes = [0xFFFFFFFF] * self.n
+
+    def append(self, old_size: int, shard_chunks: list[bytes]) -> None:
+        """Extend hashes with newly appended per-shard bytes; append-only
+        (overwrites invalidate, as in the reference where hinfo is only
+        maintained for append-style writes)."""
+        if old_size != self.total_chunk_size:
+            raise ValueError(
+                f"append at {old_size} != current {self.total_chunk_size}"
+            )
+        if len(shard_chunks) != self.n:
+            raise ValueError(f"need {self.n} shards")
+        sizes = {len(c) for c in shard_chunks}
+        if len(sizes) != 1:
+            raise ValueError("shards must be equal length")
+        for i, chunk in enumerate(shard_chunks):
+            self.cumulative_shard_hashes[i] = crc32c(
+                self.cumulative_shard_hashes[i], chunk
+            )
+        self.total_chunk_size += sizes.pop()
+
+    def get_chunk_hash(self, shard: int) -> int:
+        return self.cumulative_shard_hashes[shard]
+
+    def to_dict(self) -> dict:
+        return {
+            "total_chunk_size": self.total_chunk_size,
+            "cumulative_shard_hashes": list(self.cumulative_shard_hashes),
+        }
+
+    @classmethod
+    def from_dict(cls, n: int, d: dict) -> "HashInfo":
+        return cls(
+            n,
+            d["total_chunk_size"],
+            list(d["cumulative_shard_hashes"]),
+        )

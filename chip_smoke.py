@@ -23,9 +23,11 @@ and, phase by phase, raising on any failure:
 3. holds each kernel against its plain PyTorch version on the card, exact
    (``torch.equal``): the dense kernels at the headline k=8 m=4 encode, a
    4-erasure decode matrix, a ragged length and the w=16 / w=32 packet
-   matrices; the encode-variant kernels at the headline encode, the decode
-   matrix, a ragged length (the split2 kernels' last block with only its
-   first half live), a length whose last block has both halves live, a 32
+   matrices, and B2 at the OSD path's CRC contraction (4 x 65536 blocks
+   over 12 and 768 streams); the encode-variant kernels at the headline
+   encode, the decode matrix, a ragged length (the split2 kernels' last
+   block with only its first half live), a length whose last block has
+   both halves live, a 32
    x 32 matrix at the variants' gate (mout*kin = 1024), inputs 4 bytes off
    16-byte alignment and, for the byte ones, the (B, k, C) batch, at the
    gate and at C = 1001 with a base 4 bytes off; the lab's
@@ -72,8 +74,24 @@ and, phase by phase, raising on any failure:
    beside ``torch._int_mm``; the entries around them, the CLAY k=16 repair
    entry beside its gather plus B4; the lab's roof_copy step once more
    through the old timer (CUDA events around steps issued from Python),
-   beside the device loop's reading and L1's kernel-alone time;
-6. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+   beside the device loop's reading and L1's kernel-alone time; the
+   device CRC (B2, kin = 65536, mout = 4) at the write path's 12 streams
+   and the scrub group's 768, and the scrub verdict ``verify_batch``;
+6. runs the OSD path (``osd_phase``) with the counts set to 0, after the
+   timings so that its host state cannot move them: ``ECBackend`` over 12
+   MemStore shards of a k=8 m=4 pool with 4 KiB stripes, 64 objects of
+   4 MiB written concurrently through the coalesced launcher, read,
+   degraded-read with shards 0-3 gone and rebuilt by ``recover_batch``;
+   then the resident write-back backend with 64 objects of 512 KiB (64 KiB
+   shard streams, every hinfo by the device CRC, checked against the host
+   crc32c), a batched scrub (2 launches), one bit flipped at rest and
+   scrubbed (exactly that object and shard flagged), two waves of 64
+   concurrent 512-byte overwrites, flushed, evicted and read back, each
+   wave's wall time, client GiB/s, launches and device share printed.  It
+   fails if B1 or B2 was not launched, if 64 concurrent writes did not
+   coalesce into fewer launches than ops, or if a scrub of one group took
+   other than 2 launches; its launches join the ``kernels`` line's counts;
+7. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without CUDA, or when the package is
@@ -150,6 +168,266 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
+# The OSD phase: an EC pool of k=8 m=4 reed_sol_van with 512-byte chunks
+# (4 KiB stripes), one MemStore per shard.  (a) the classic coalesced
+# backend: 64 objects of 4 MiB (an RBD pool's default object size, and the
+# repair engine's batch of 64) written concurrently, read, degraded-read
+# with shards 0-3 gone and rebuilt by recover_batch; (b) the resident
+# write-back backend: 64 objects of 512 KiB, so every shard stream is
+# 64 KiB (the device CRC's length gate) and every hinfo is computed on the
+# card, then scrubbed, one bit flipped and scrubbed again, and two waves
+# of 64 concurrent 512-byte overwrites (bench.py's cfg7 pattern).
+OSD_PROFILE = {"k": "8", "m": "4", "technique": "reed_sol_van"}
+OSD_OBJECTS = 64
+OSD_OBJECT_BYTES = 4 << 20
+OSD_LOST = [0, 1, 2, 3]
+OSD_RESIDENT_BYTES = 512 << 10
+OSD_VICTIM = (37, 10, 12345, 0x10)   # object, shard, offset, bit flipped
+OSD_BUDGET_S = 120.0
+
+
+def osd_phase(dev, seed: int) -> dict:
+    """Drive the port's OSD data path (``ECBackend`` over ``MemStore``
+    shards) on the CUDA device ``dev`` and check every result; return
+    per-wave readings.  Each B1/B2 launch is bracketed by CUDA events (an
+    upper bound of its device time: the wrapper's host work after the
+    first event is included)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.common import crc32c as crc_mod
+    from ceph_tpu_torch.common import failpoint as fp
+    from ceph_tpu_torch.ec import checksum
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.osd.ec_backend import HINFO_ATTR, ECBackend, LocalShard
+    from ceph_tpu_torch.osd.ec_util import HashInfo
+    from ceph_tpu_torch.store import (CollectionId, GHObject, MemStore,
+                                      Transaction)
+
+    t_phase = time.perf_counter()
+    log(f"[osd] host crc32c: {crc_mod.backend()} "
+        f"({crc_mod.library_path().name})")
+    if crc_mod.backend() != "native":
+        raise AssertionError("the native crc32c did not build or load")
+    rng = np.random.default_rng(seed)
+    codec = ErasureCodePluginRegistry().factory("jax_rs", OSD_PROFILE,
+                                                device=dev)
+    n = codec.get_chunk_count()
+    events: list = []
+    shimmed = {}
+
+    def timed(fn):
+        def shim(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+        return shim
+
+    for name in ("gf2_apply_words", "gf2_apply_u8"):
+        shimmed[name] = ck.KERNELS[name]
+        ck.KERNELS[name] = timed(shimmed[name])
+        setattr(ck, name, ck.KERNELS[name])
+
+    async def backend(**kw):
+        stores, shards = {}, {}
+        for i in range(n):
+            store = MemStore()
+            cid = CollectionId(1, 0, shard=i)
+            await store.queue_transactions(
+                Transaction().create_collection(cid))
+            stores[i] = (store, cid)
+            shards[i] = LocalShard(store, cid, pool=1, shard=i)
+        be = ECBackend(codec, shards, stripe_unit=512, **kw)
+        return be, stores
+
+    waves = []
+
+    async def wave(label, be, nbytes, fn):
+        """One wave: its wall time, client GiB/s, launches, the backend's
+        summed launch times and the kernels' event time, each against
+        the wall time."""
+        k0 = dict(ck.LAUNCHES)
+        p0 = {key: be.perf.value(key) for key in (
+            "ec_device_launches", "ec_encode_launch_us",
+            "ec_decode_launch_us", "ec_coalesce_launches",
+            "ec_coalesce_ops", "ec_scrub_launches")}
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = await fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        kern_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        d = {key: be.perf.value(key) - v for key, v in p0.items()}
+        launch_s = (d["ec_encode_launch_us"] + d["ec_decode_launch_us"]) / 1e6
+        rec = {"wave": label, "wall_s": sec,
+               "client_gib_s": nbytes / sec / 2**30,
+               "kernel_launches": {k: ck.LAUNCHES[k] - k0[k] for k in k0
+                                   if ck.LAUNCHES[k] != k0[k]},
+               "kernel_event_s": kern_s, "kernel_share": kern_s / sec,
+               "launch_s": launch_s, "launch_share": launch_s / sec,
+               **{key: d[key] for key in ("ec_device_launches",
+                                          "ec_coalesce_launches",
+                                          "ec_coalesce_ops",
+                                          "ec_scrub_launches")}}
+        if be.resident is not None:
+            rec["resident"] = be.resident_stats()
+        waves.append(rec)
+        log(f"[osd] {json.dumps(rec)}")
+        return out
+
+    async def classic():
+        be, stores = await backend(coalesce=True)
+        names = [f"rbd_data.{i:04x}" for i in range(OSD_OBJECTS)]
+        blob = rng.bytes(OSD_OBJECTS * OSD_OBJECT_BYTES)
+        datas = {nm: blob[i * OSD_OBJECT_BYTES:(i + 1) * OSD_OBJECT_BYTES]
+                 for i, nm in enumerate(names)}
+        total = OSD_OBJECTS * OSD_OBJECT_BYTES
+        await wave("a: write", be, total, lambda: asyncio.gather(*(
+            be.write(nm, d) for nm, d in datas.items())))
+        w = waves[-1]
+        if w["ec_coalesce_ops"] != OSD_OBJECTS:
+            raise AssertionError(f"{OSD_OBJECTS} concurrent writes coalesced "
+                                 f"{w['ec_coalesce_ops']} ops")
+        if not w["ec_coalesce_launches"] < w["ec_coalesce_ops"]:
+            raise AssertionError(f"coalesced launches {w} not below ops")
+        got = await wave("a: read", be, total, lambda: asyncio.gather(*(
+            be.read(nm) for nm in names)))
+        if got != [datas[nm] for nm in names]:
+            raise AssertionError("classic read-back differs")
+        before = {}
+        for nm in names:
+            for s in OSD_LOST:
+                store, cid = stores[s]
+                oid = GHObject(1, nm, shard=s)
+                before[nm, s] = store.read(cid, oid)
+                await store.queue_transactions(
+                    Transaction().remove(cid, oid))
+        got = await wave("a: degraded read", be, total,
+                         lambda: asyncio.gather(*(be.read(nm)
+                                                  for nm in names)))
+        if got != [datas[nm] for nm in names]:
+            raise AssertionError(f"degraded read with {OSD_LOST} lost "
+                                 f"differs")
+        res = await wave("a: recover_batch", be, total,
+                         lambda: be.recover_batch(names, OSD_LOST))
+        if sorted(res["recovered"]) != sorted(names):
+            raise AssertionError(f"recover_batch left objects: {res}")
+        for (nm, s), want in before.items():
+            store, cid = stores[s]
+            if store.read(cid, GHObject(1, nm, shard=s)) != want:
+                raise AssertionError(f"rebuilt shard {s} of {nm} differs")
+        log(f"[osd] (a) {OSD_OBJECTS} x {OSD_OBJECT_BYTES} B: writes, reads, "
+            f"degraded reads with {OSD_LOST} lost and recover_batch "
+            f"({res['strategy']}, {res['batches']} batch) bit-identical")
+
+    async def resident():
+        be, stores = await backend(resident=True, resident_writeback=True,
+                                   resident_max_bytes=1 << 30)
+        names = [f"rbd_data.r{i:04x}" for i in range(OSD_OBJECTS)]
+        blob = rng.bytes(OSD_OBJECTS * OSD_RESIDENT_BYTES)
+        datas = {nm: bytearray(blob[i * OSD_RESIDENT_BYTES:
+                                    (i + 1) * OSD_RESIDENT_BYTES])
+                 for i, nm in enumerate(names)}
+        total = OSD_OBJECTS * OSD_RESIDENT_BYTES
+        await wave("b: write", be, total, lambda: asyncio.gather(*(
+            be.write(nm, bytes(d)) for nm, d in datas.items())))
+        w = waves[-1]
+        if w["ec_coalesce_ops"] != OSD_OBJECTS:
+            raise AssertionError(f"{OSD_OBJECTS} concurrent writes coalesced "
+                                 f"{w['ec_coalesce_ops']} ops")
+        await be.flush_resident()
+        shard_len = OSD_RESIDENT_BYTES // 8
+        if not checksum.supported_len(shard_len):
+            raise AssertionError(f"shard length {shard_len} is beyond the "
+                                 f"device CRC's gate")
+        for nm in names:
+            store0, cid0 = stores[0]
+            raw = store0.getattr(cid0, GHObject(1, nm, shard=0), HINFO_ATTR)
+            hinfo = HashInfo.from_dict(n, json.loads(raw))
+            for s in range(n):
+                store, cid = stores[s]
+                stored = store.read(cid, GHObject(1, nm, shard=s))
+                if (hinfo.total_chunk_size != shard_len
+                        or crc_mod.crc32c(0xFFFFFFFF, stored)
+                        != hinfo.get_chunk_hash(s)):
+                    raise AssertionError(f"hinfo of {nm} shard {s} differs "
+                                         f"from the host crc32c")
+        log(f"[osd] (b) {OSD_OBJECTS} x {OSD_RESIDENT_BYTES} B written back: "
+            f"every hinfo (device CRC, L = {shard_len}) equals the "
+            f"{crc_mod.backend()} host crc32c of the stored shards")
+        rep = await wave("b: scrub", be, total,
+                         lambda: be.scrub_batch(names))
+        if waves[-1]["ec_scrub_launches"] != 2 or rep["groups"] != 1:
+            raise AssertionError(f"scrub of one group took "
+                                 f"{waves[-1]['ec_scrub_launches']} "
+                                 f"launches, {rep['groups']} groups")
+        if not all(r["clean"] and r["hinfo"]
+                   for r in rep["reports"].values()):
+            raise AssertionError("scrub of the written pool not clean")
+        obj, shard, off, mask = OSD_VICTIM
+        victim = names[obj % OSD_OBJECTS]
+        store, cid = stores[shard]
+
+        def flip():
+            fp.fp_set("store.corrupt_shard", "error", count=1)
+            try:
+                return store.corrupt_shard(
+                    cid, GHObject(1, victim, shard=shard), offset=off,
+                    mask=mask)
+            finally:
+                fp.fp_clear()
+
+        be.resident.drop_object(be.resident_ns, victim)  # scrub the store
+        flipped = flip()
+        rep = await wave("b: scrub, one bit flipped", be, total,
+                         lambda: be.scrub_batch(names))
+        bad = {nm: r for nm, r in rep["reports"].items() if not r["clean"]}
+        if (waves[-1]["ec_scrub_launches"] != 2 or list(bad) != [victim]
+                or bad[victim]["crc_mismatch"] != [shard]
+                or bad[victim]["parity_inconsistent"] != [shard]):
+            raise AssertionError(f"flip {flipped}: scrub flagged {bad}")
+        flip()
+        log(f"[osd] (b) bit flip {flipped}: scrub flagged exactly "
+            f"{victim} shard {shard} (crc and parity); bit restored")
+        for r in range(2):
+            offset = 512 + r * 4096
+            patch = bytes([0xA0 + r]) * 512
+            await wave(f"b: overwrite {r + 1}", be, OSD_OBJECTS * len(patch),
+                       lambda: asyncio.gather(*(
+                           be.write(nm, patch, offset=offset)
+                           for nm in names)))
+            for d in datas.values():
+                d[offset:offset + 512] = patch
+        await be.flush_resident()
+        await be.resident.evict(target=0)
+        got = await wave("b: read after evict", be, total,
+                         lambda: asyncio.gather(*(be.read(nm)
+                                                  for nm in names)))
+        if got != [bytes(datas[nm]) for nm in names]:
+            raise AssertionError("resident read-back after evict differs")
+        log(f"[osd] (b) 2 waves of {OSD_OBJECTS} x 512 B overwrites, "
+            f"flushed, evicted to 0: read back bit-identical")
+
+    try:
+        asyncio.run(classic())
+        asyncio.run(resident())
+    finally:
+        for name, fn in shimmed.items():
+            ck.KERNELS[name] = fn
+            setattr(ck, name, fn)
+    return {"waves": waves, "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -159,7 +437,7 @@ def main() -> int:
         return 1
     try:
         from ceph_tpu_torch.common import cuda_build
-        from ceph_tpu_torch.ec import benchmark, corpus
+        from ceph_tpu_torch.ec import benchmark, checksum, corpus
         from ceph_tpu_torch.ec import cuda_kernels as ck
         from ceph_tpu_torch.ec.bitmatrix import gf_matrix_to_bitmatrix
         from ceph_tpu_torch.ec.plugins.jax_rs import ErasureCodeJaxRS
@@ -379,6 +657,24 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"gf2_apply_u8 != plain version at {label}")
         errs["gf2_apply_u8"] = max(errs["gf2_apply_u8"], max_err(got8, ref8))
+    # B2 at the OSD path's CRC shapes (ec.checksum): 4 output rows over the
+    # (L, B) transpose of B streams of L = 64 KiB, for the write path's 12
+    # streams (12-byte rows: every unit on the edge path) and the scrub
+    # group's 768.
+    crc = checksum.crc_constants(checksum.CRC_DEVICE_MAX_LEN)
+    for nstreams in (12, 768):
+        data = rand_u8((checksum.CRC_DEVICE_MAX_LEN, nstreams))
+        got8 = ck.gf2_apply_u8(crc, data)
+        ref8 = ck.gf2_apply_u8_plain(crc.plain_bm(dev), data)
+        torch.cuda.synchronize()
+        ok = torch.equal(got8, ref8)
+        log(f"[exact] gf2_apply_u8 CRC contraction (4 x {crc.kin}) over "
+            f"{nstreams} streams: bytes {tuple(data.shape)} -> equal={ok}")
+        if not ok:
+            raise AssertionError(f"gf2_apply_u8 != plain version on the CRC "
+                                 f"of {nstreams} streams")
+        errs["gf2_apply_u8"] = max(errs["gf2_apply_u8"], max_err(got8, ref8))
+    del data, got8, ref8
 
     # The encode-variant kernels (unblocked matrices only) and the lab's
     # copy kernel.
@@ -990,7 +1286,7 @@ def main() -> int:
             log(f"[time] {name} {label}: {k_s * 1e6:.2f} us (runs "
                 f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
                 f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
-                f"bound; main-path launches {main_launches[name]}")
+                f"bound; phase 4 launches {main_launches[name]}")
             continue
         plain_s = time_it(plain, iterations=2, runs=3)
         kern_s = time_it(kern)
@@ -1002,7 +1298,7 @@ def main() -> int:
         log(f"[time] {name} {label}: {k_s * 1e6:.2f} us (runs "
             f"{kern_s * 1e6:.2f}, {kern_s2 * 1e6:.2f} us), bound "
             f"{b_s * 1e6:.2f} us ({b_by}) = {100 * b_s / k_s:.1f}% of "
-            f"bound; plain {p_s * 1e3:.3f} ms; main-path launches "
+            f"bound; plain {p_s * 1e3:.3f} ms; phase 4 launches "
             f"{main_launches[name]}")
     def interleaved(fns: dict) -> dict:
         """label -> its INTERLEAVED_ROUNDS readings (``time_it``), the
@@ -1219,6 +1515,34 @@ def main() -> int:
     for label, sec in walls.items():
         log(f"[wall] {label}: {sec:.3f} s")
 
+    # The OSD path's device CRC: B2 with the CRC's (32, 8L) bitmatrix as a
+    # (4 x L) contraction over the streams' (L, B) transpose, at the write
+    # path's 12 streams of 64 KiB and the scrub group's 64 x 12; then the
+    # scrub verdict (parity compare, CRC, both copied to the host) at the
+    # scrub group's shape.  Bound: the streams read and the registers
+    # written once (the 5 MiB of field tables aside), or the bit-plane
+    # contraction's int8 operations.
+    for nrows in (12, 768):
+        streams = rand_u8((nrows, checksum.CRC_DEVICE_MAX_LEN))
+        L = streams.shape[1]
+        c_s = time_it(lambda: checksum.crc_bits_device(streams),
+                      iterations=3, runs=3)
+        c_bound, c_by = bound(nrows * L + 4 * nrows, 2 * 32 * 8 * L * nrows)
+        log(f"[time] crc_bits_device ({nrows}, {L}): {c_s * 1e6:.2f} us, "
+            f"bound {c_bound * 1e6:.2f} us ({c_by}) = "
+            f"{100 * c_bound / c_s:.2f}% of bound")
+    stored = streams.reshape(64, 12, L)
+    recomputed = stored.clone()
+    v_s = time_it(lambda: checksum.verify_batch(recomputed, stored),
+                  iterations=3, runs=3)
+    v_bound, v_by = bound(2 * stored.numel() + 5 * 64 * 12,
+                          2 * 32 * 8 * L * 768)
+    log(f"[time] verify_batch (64, 12, {L}): {v_s * 1e6:.2f} us (parity "
+        f"compare + B2 CRC + copies to the host), bound "
+        f"{v_bound * 1e6:.2f} us ({v_by}) = {100 * v_bound / v_s:.2f}% of "
+        f"bound")
+    del streams, stored, recomputed
+
     # The repair of the lab's timer: its roof_copy step through the old
     # timer (CUDA events around steps issued from Python, host-bound for a
     # kernel this short) beside the device loop's reading and L1 alone.
@@ -1237,7 +1561,26 @@ def main() -> int:
             f"{lab[name]['sec'] * 1e6:.2f} us")
     del lab_words, copy_out
 
-    # -- 6. result lines ------------------------------------------------------
+    # -- 6. the OSD path, counted ---------------------------------------------
+    # ECBackend over 12 MemStore shards: the coalesced launcher, the
+    # resident write-back cache, hinfo by the device CRC, batched scrub and
+    # repair (osd_phase).  B1 carries every encode and decode, B2 the CRC.
+    # It runs after phase 5's timings, so its host state (a large Python
+    # heap, the allocator's cache) cannot move the eager readings.
+    ck.reset_launch_counts()
+    osd = osd_phase(dev, SEED)
+    osd_launches = counts()
+    log(f"[main path: osd] launches {osd_launches}; {len(osd['waves'])} "
+        f"waves in {osd['seconds']:.2f} s (budget {OSD_BUDGET_S:.0f} s)")
+    for name in ("gf2_apply_words", "gf2_apply_u8"):
+        if osd_launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"OSD main path")
+        main_launches[name] += osd_launches[name]
+    if osd["seconds"] > OSD_BUDGET_S:
+        raise AssertionError(f"the OSD phase took {osd['seconds']:.1f} s")
+
+    # -- 7. result lines ------------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",

@@ -476,3 +476,63 @@ def test_split2_u8_kernel_byte_edges(cuda, edge, coeff):
     assert torch.equal(out, ck.gf2_apply_u8_split2_plain(
         consts.plain_bm(cuda), data.contiguous()))
     assert torch.equal(padded[..., out.shape[-1]:], keep[..., out.shape[-1]:])
+
+
+# -- the OSD path: the device CRC and a resident backend ---------------------
+
+@pytest.mark.parametrize("shape", [(12, 65536), (768, 4096)],
+                         ids=["write_path", "scrub_group"])
+def test_crc_bits_device_matches_plain(cuda, shape):
+    from ceph_tpu_torch.common.crc32c import crc32c
+    from ceph_tpu_torch.ec import checksum as cs
+
+    streams = _u8(shape, 21, cuda)
+    before = ck.LAUNCHES["gf2_apply_u8"]
+    bits = cs.crc_bits_device(streams)
+    assert ck.LAUNCHES["gf2_apply_u8"] == before + 1
+    assert bits.device == streams.device
+    consts = cs.crc_constants(shape[1])
+    plain = ck.gf2_apply_u8_plain(consts.plain_bm(cuda),
+                                  streams.t().contiguous()).t()
+    assert torch.equal(bits, plain)
+    host = streams[:3].cpu().numpy()
+    assert cs.finalize_crcs(bits[:3].cpu().numpy(), [cs.CRC_SEED] * 3,
+                            shape[1]) == [
+        crc32c(cs.CRC_SEED, r.tobytes()) for r in host]
+
+
+def test_resident_backend_round_trip(cuda):
+    import asyncio
+
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShard
+    from ceph_tpu_torch.store import CollectionId, MemStore, Transaction
+
+    async def run():
+        codec = ErasureCodePluginRegistry().factory(
+            "jax_rs", {"k": "4", "m": "2"}, device=cuda)
+        store = MemStore()
+        shards = {}
+        for i in range(6):
+            cid = CollectionId(1, 0, shard=i)
+            await store.queue_transactions(
+                Transaction().create_collection(cid))
+            shards[i] = LocalShard(store, cid, pool=1, shard=i)
+        be = ECBackend(codec, shards, stripe_unit=1024, resident=True,
+                       resident_writeback=True)
+        assert be.device == cuda and be.resident.device == cuda
+        datas = {f"o{i}": np.random.default_rng(i).integers(
+            0, 256, 16384, np.uint8).tobytes() for i in range(8)}
+        await asyncio.gather(*(be.write(o, d) for o, d in datas.items()))
+        ent = be.resident.get("", "o0", 0, count=False)
+        assert ent.arr.device == cuda
+        assert await be.read("o3") == datas["o3"]
+        await be.flush_resident()
+        scrub = await be.scrub_batch(sorted(datas))
+        assert all(r["clean"] and r["hinfo"]
+                   for r in scrub["reports"].values())
+        await be.resident.evict(target=0)
+        for o, d in datas.items():
+            assert await be.read(o) == d
+
+    asyncio.run(run())

@@ -90,6 +90,44 @@ for name in ("roof_copy", "enc_cmp_expand", "enc_u8_split2", "unpack_only",
 """ + CHECK
 
 
+# The OSD path of the port: ECBackend writes, a degraded read, a batched
+# scrub through the device CRC, and the resident write-back path, on the
+# CPU.
+BLOCKED_OSD_RUN = BLOCKER + r"""
+import asyncio
+import numpy as np
+from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShard
+from ceph_tpu_torch.store import CollectionId, GHObject, MemStore, Transaction
+
+async def run(resident):
+    codec = ErasureCodePluginRegistry().factory("jax_rs", {"k": "4", "m": "2"},
+                                                device="cpu")
+    store = MemStore()
+    shards = {}
+    for i in range(6):
+        cid = CollectionId(1, 0, shard=i)
+        await store.queue_transactions(Transaction().create_collection(cid))
+        shards[i] = LocalShard(store, cid, pool=1, shard=i)
+    be = ECBackend(codec, shards, stripe_unit=128, resident=resident,
+                   resident_writeback=resident)
+    datas = {f"o{i}": bytes([i + 1]) * 4096 for i in range(4)}
+    await asyncio.gather(*(be.write(o, d) for o, d in datas.items()))
+    await be.flush_resident()
+    if resident:
+        await be.resident.evict(target=0)
+    for s in (0, 3):
+        await store.queue_transactions(Transaction().remove(
+            CollectionId(1, 0, shard=s), GHObject(1, "o1", shard=s)))
+    assert await be.read("o1") == datas["o1"]
+    rep = await be.scrub_batch(["o0", "o2", "o3"])
+    assert all(r["clean"] for r in rep["reports"].values())
+
+asyncio.run(run(False))
+asyncio.run(run(True))
+""" + CHECK
+
+
 def _run_blocked(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -108,6 +146,10 @@ def test_clay_repair_runs_with_jax_and_ceph_tpu_blocked():
 
 def test_perf_lab_runs_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_LAB_RUN)
+
+
+def test_osd_path_runs_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_OSD_RUN)
 
 
 def _imported_modules(path: pathlib.Path):
@@ -148,3 +190,47 @@ def test_repair_codecs_without_device_raise_without_cuda(monkeypatch, plugin,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         ErasureCodePluginRegistry().factory(plugin, profile)
+
+
+def test_device_shard_cache_without_device_raises_without_cuda(monkeypatch):
+    from ceph_tpu_torch.store import DeviceShardCache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        DeviceShardCache()
+    assert DeviceShardCache(device="cpu").device == torch.device("cpu")
+
+
+def test_ec_backend_over_a_codec_without_device_raises_without_cuda(
+        monkeypatch):
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.osd.ec_backend import ECBackend
+
+    codec = ErasureCodePluginRegistry().factory("jax_rs", {"k": "2", "m": "1"},
+                                                device="cpu")
+
+    class NoDevice:
+        """The codec's surface without its ``device``."""
+
+        def __getattr__(self, name):
+            if name == "device":
+                raise AttributeError(name)
+            return getattr(codec, name)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    shards = {i: None for i in range(3)}
+    with pytest.raises(RuntimeError):
+        ECBackend(NoDevice(), shards, stripe_unit=128)
+    assert ECBackend(codec, shards, stripe_unit=128).device == \
+        torch.device("cpu")
+
+
+def test_device_shard_cache_sharding_raises_naming_a10():
+    from ceph_tpu_torch.store import DeviceShardCache
+
+    with pytest.raises(NotImplementedError, match="A10"):
+        DeviceShardCache(device="cpu", sharding=object())
+    cache = DeviceShardCache(device="cpu")
+    cache.set_sharding(None)
+    with pytest.raises(NotImplementedError, match="A10"):
+        cache.set_sharding(object())
