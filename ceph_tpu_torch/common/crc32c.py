@@ -1,15 +1,21 @@
 """crc32c (Castagnoli) with a native C fast path.
 
-Counterpart of ceph_tpu/common/crc32c.py.  Loads the port's own copy of
-the slice-by-8 C source (``ceph_tpu_torch/native/crc32c.c``) through
-ctypes, built at first use with
+Counterpart of ceph_tpu/common/crc32c.py.  Loads the port's own native
+library through ctypes: its copy of the slice-by-8 C source
+(``ceph_tpu_torch/native/crc32c.c``) and of the WAL engine
+(``native/wal_engine.cc``, which calls ``ceph_tpu_crc32c``; bound by
+``store/native_wal.py``) linked into one shared object, built at first use
+with
 
-    gcc -O3 -fPIC -shared -o _build/crc32c-<hash>.so native/crc32c.c
+    gcc -O3 -fPIC -c native/crc32c.c
+    g++ -O3 -fPIC -std=c++17 -c native/wal_engine.cc
+    g++ -shared -o _build/native-<hash>.so crc32c.o wal_engine.o
 
-into ``ceph_tpu_torch/_build/`` (gitignored, named by a hash of the source
-and the flags, published with an atomic rename so concurrent first uses
-never load a half-written file).  Without a C compiler it falls back to
-the pure-Python table loop.  ``backend()`` says which one serves.
+into ``ceph_tpu_torch/_build/`` (gitignored, named by a hash of the
+sources and the flags, published with an atomic rename so concurrent
+first uses never load a half-written file).  Without a C compiler it falls
+back to the pure-Python table loop.  ``backend()`` says which one
+serves.
 
 Semantics match ceph_crc32c(seed, buf, len) (reference
 src/common/crc32c.h): callers chain seeds; ECUtil HashInfo uses the
@@ -29,31 +35,35 @@ import threading
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = PACKAGE_DIR / "native" / "crc32c.c"
+WAL_SOURCE = PACKAGE_DIR / "native" / "wal_engine.cc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-CFLAGS = ("-O3", "-fPIC", "-shared")
+CFLAGS = ("-O3", "-fPIC")
+CXXFLAGS = ("-O3", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _native = None          # None: not tried yet; False: unavailable
 
 
 def library_path() -> pathlib.Path:
-    """Where native/crc32c.c builds to (content-addressed)."""
+    """Where native/crc32c.c and native/wal_engine.cc build to
+    (content-addressed)."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(CFLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"crc32c-{digest[:16]}.so"
+        SOURCE.read_bytes() + WAL_SOURCE.read_bytes()
+        + " ".join(CFLAGS + CXXFLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"native-{digest[:16]}.so"
 
 
 def _build(target: pathlib.Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        subprocess.run(["gcc", *CFLAGS, "-o", tmp, str(SOURCE)], check=True,
-                       capture_output=True, timeout=120)
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        crc_o = os.path.join(tmp, "crc32c.o")
+        wal_o = os.path.join(tmp, "wal_engine.o")
+        lib = os.path.join(tmp, target.name)
+        for cmd in (["gcc", *CFLAGS, "-c", "-o", crc_o, str(SOURCE)],
+                    ["g++", *CXXFLAGS, "-c", "-o", wal_o, str(WAL_SOURCE)],
+                    ["g++", "-shared", "-o", lib, crc_o, wal_o]):
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(lib, target)
 
 
 def _load_native():

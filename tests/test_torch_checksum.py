@@ -83,8 +83,11 @@ def test_crc_bitmatrix_matches_reference(length):
 
 def test_crc_constants_cached_per_length():
     assert cs.crc_constants(256) is cs.crc_constants(256)
-    consts = cs.crc_constants(256)
-    assert (consts.mout, consts.kin) == (4, 256)
+    plan = cs.crc_constants(256)
+    assert (plan.step1.mout, plan.step1.kin) == (4, 16)
+    assert plan.seg_folds == [] and plan.launches == 2
+    assert cs.crc_constants(256, 64) is not plan
+    assert [f for f, _ in cs.crc_constants(256, 64).seg_folds] == [4]
 
 
 @pytest.mark.parametrize("length", LENGTHS)
@@ -114,7 +117,77 @@ def test_crc_bits_device_goes_through_b2(monkeypatch):
 
     monkeypatch.setattr(ck, "gf2_apply_u8", spy)
     cs.crc_bits_device(torch.from_numpy(_rows(7, 300, 2)))
-    assert seen == [(4, 300, (300, 7))]
+    # 300 bytes front-padded to one segment of 304: step 1 over its 19
+    # rows of 16 lanes, then the 16 lanes folded over the (16, 4, 7)
+    # transpose
+    assert seen == [(4, 19, (7, 19, 16)), (4, 64, (1, 64, 7))]
+
+
+# The split-L form: step 1 over segments of 16 lanes, segment folds, the
+# lane fold.  Every (L, B) of the grid against the host crc32c; the JAX
+# package's crc_bits_device (its einsum on the CPU) at every point but
+# (65536, 768), whose bf16 bit expansion alone is 805 MB.
+SPLIT_LENGTHS = [1, 7, 511, 512, 4097, 65536]
+SPLIT_BATCHES = [1, 12, 768]
+
+
+@pytest.mark.parametrize("batch", SPLIT_BATCHES)
+@pytest.mark.parametrize("length", SPLIT_LENGTHS)
+def test_split_crc_matches_host_and_reference(length, batch):
+    streams = _rows(batch, length, 1000 * length + batch)
+    bits = cs.crc_bits_device(torch.from_numpy(streams)).numpy()
+    assert bits.shape == (batch, 4) and bits.dtype == np.uint8
+    assert cs.finalize_crcs(bits, [cs.CRC_SEED] * batch, length) == [
+        crc32c(cs.CRC_SEED, r.tobytes()) for r in streams]
+    if length * batch < 65536 * 768:
+        assert np.array_equal(bits, np.asarray(
+            j_cs.crc_bits_device(streams)))
+
+
+@pytest.mark.parametrize("seg,fan,lanes", [
+    (16, 2, (2, 2, 2, 2)), (64, 4, (4, 4)), (256, 16, (16,)),
+    (4096, 16, (16,)), (1024, 8, (2, 8))])
+def test_split_crc_plans_agree(seg, fan, lanes):
+    streams = torch.from_numpy(_rows(5, 4097, seg))
+    plan = cs.CrcPlan(4097, seg, fan, lanes)
+    assert plan.padded % plan.seg == 0 and plan.pad == plan.padded - 4097
+    assert plan.launches == 1 + len(plan.seg_folds) + len(lanes)
+    assert torch.equal(plan(streams), cs.crc_bits_plain(streams))
+
+
+def test_split_crc_plan_refuses_bad_shapes():
+    for args in [(0,), (64, 24), (64, 64, 1), (64, 64, 4, (4, 2))]:
+        with pytest.raises(ValueError):
+            cs.CrcPlan(*args)
+
+
+@pytest.mark.parametrize("length", [7, 511, 4097])
+def test_split_crc_chained_seeds(length):
+    """Seeds chain through the host's affine term: three appends of one
+    length equal one pass over their concatenation."""
+    parts = [_rows(12, length, 40 + j) for j in range(3)]
+    seeds = [cs.CRC_SEED] * 12
+    for part in parts:
+        ref = j_cs.device_crc32c(part, seeds=seeds)
+        seeds = cs.device_crc32c(part, seeds=seeds, device="cpu")
+        assert seeds == ref
+    whole = np.concatenate(parts, axis=1)
+    assert seeds == [crc32c(cs.CRC_SEED, r.tobytes()) for r in whole]
+
+
+def test_fold_matrices_are_shift_powers():
+    """A fold of one partial is the identity; A^n composes."""
+    assert np.array_equal(cs.fold_bitmatrix(1, 77), np.eye(32, dtype=np.uint8))
+    a3 = cs.shift_power(3).astype(np.int64)
+    a5 = cs.shift_power(5).astype(np.int64)
+    assert np.array_equal((a3 @ a5) & 1, cs.shift_power(8))
+    tbl = np.array(crc_mod.table(), np.uint32)
+    r = np.uint32(0x12345678)
+    step = (r >> np.uint32(8)) ^ tbl[r & np.uint32(0xFF)]
+    bits = (r >> np.arange(32, dtype=np.uint32)) & 1
+    got = (cs.shift_power(1).astype(np.int64) @ bits) & 1
+    assert int((got.astype(np.uint32) << np.arange(32, dtype=np.uint32))
+               .sum()) == int(step)
 
 
 def test_chained_seeds_match_hashinfo_append():

@@ -489,12 +489,12 @@ def test_crc_bits_device_matches_plain(cuda, shape):
     streams = _u8(shape, 21, cuda)
     before = ck.LAUNCHES["gf2_apply_u8"]
     bits = cs.crc_bits_device(streams)
-    assert ck.LAUNCHES["gf2_apply_u8"] == before + 1
+    # the split-L plan: step 1, one segment fold at 64 KiB, one lane fold
+    plan = cs.crc_constants(shape[1])
+    assert plan.launches == {65536: 3, 4096: 2}[shape[1]]
+    assert ck.LAUNCHES["gf2_apply_u8"] == before + plan.launches
     assert bits.device == streams.device
-    consts = cs.crc_constants(shape[1])
-    plain = ck.gf2_apply_u8_plain(consts.plain_bm(cuda),
-                                  streams.t().contiguous()).t()
-    assert torch.equal(bits, plain)
+    assert torch.equal(bits, cs.crc_bits_plain(streams))
     host = streams[:3].cpu().numpy()
     assert cs.finalize_crcs(bits[:3].cpu().numpy(), [cs.CRC_SEED] * 3,
                             shape[1]) == [

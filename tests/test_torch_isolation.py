@@ -128,6 +128,81 @@ asyncio.run(run(True))
 """ + CHECK
 
 
+# The durable stores, the backfill engine and the host substrate: every
+# module of the slice imported, the native library (crc32c and the WAL
+# engine) built and used, a WalStore on each tier and a FileStore remounted,
+# a backfill drain through the repair scheduler, two messengers talking.
+BLOCKED_SUBSTRATE_RUN = BLOCKER + r"""
+import asyncio, tempfile
+import ceph_tpu_torch.common.admin_socket
+import ceph_tpu_torch.common.backoff
+import ceph_tpu_torch.common.compressor
+import ceph_tpu_torch.common.config
+import ceph_tpu_torch.common.lockdep
+import ceph_tpu_torch.common.throttle
+import ceph_tpu_torch.msg.message
+import ceph_tpu_torch.osd.backfill as bf
+from ceph_tpu_torch.common.perf import PerfCounters
+from ceph_tpu_torch.msg import Message, Messenger
+from ceph_tpu_torch.osd.repair import RepairScheduler
+from ceph_tpu_torch.store import (CollectionId, FileStore, GHObject, MemStore,
+                                  Transaction, WalStore, native_wal)
+assert native_wal.available()
+
+async def run(root):
+    cid, oid = CollectionId(1, 0), GHObject(1, "o")
+    for cls, kw in ((WalStore, {"native": True}), (WalStore, {"native": False}),
+                    (FileStore, {"compression": "zlib"})):
+        path = f"{root}/{cls.__name__}{len(kw)}{sorted(kw)}"
+        s = cls(path, **kw)
+        await s.mount()
+        await s.queue_transactions(Transaction().create_collection(cid)
+                                   .write(cid, oid, 0, b"durable"))
+        await s.umount()
+        s = cls(path, **kw)
+        await s.mount()
+        assert s.read(cid, oid) == b"durable"
+        await s.umount()
+
+    class Repair:
+        max_batch_objects = 2
+        async def drain(self, backend, rebuild, versions=None,
+                        clazz="recovery", stats=None):
+            assert clazz == "backfill"
+            return set(rebuild)
+
+    eng = bf.BackfillEngine(Repair(), PerfCounters("t"))
+    assert await eng.drain_pg(None, {"a": [1], "b": [1], "c": [1]}, pool=1,
+                              ps=0, epoch=3) == {"a", "b", "c"}
+    RepairScheduler(PerfCounters("r"))
+    got = []
+
+    class D:
+        async def ms_dispatch(self, conn, msg):
+            got.append(msg.data)
+        def ms_handle_reset(self, conn):
+            pass
+        def ms_handle_connect(self, conn):
+            pass
+
+    a, b = Messenger("mon.a"), Messenger("osd.0")
+    a.set_dispatcher(D())
+    await a.bind("tcp://127.0.0.1:0")
+    await b.bind("tcp://127.0.0.1:0")
+    await b.send_to(str(a.my_addr), Message("ping", {"x": 1}))
+    for _ in range(500):
+        if got:
+            break
+        await asyncio.sleep(0.01)
+    assert got == [{"x": 1}]
+    await a.shutdown()
+    await b.shutdown()
+
+with tempfile.TemporaryDirectory() as root:
+    asyncio.run(run(root))
+""" + CHECK
+
+
 def _run_blocked(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -150,6 +225,31 @@ def test_perf_lab_runs_with_jax_and_ceph_tpu_blocked():
 
 def test_osd_path_runs_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_OSD_RUN)
+
+
+def test_substrate_runs_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_SUBSTRATE_RUN)
+
+
+def test_native_library_builds_from_the_ports_sources_only():
+    """The native library's build path: its two sources lie in the
+    port's native/, include only system headers, and no port file names
+    the JAX package's native directory or library."""
+    from ceph_tpu_torch.common import crc32c as crc_mod
+
+    native = REPO / "ceph_tpu_torch" / "native"
+    assert crc_mod.SOURCE == native / "crc32c.c"
+    assert crc_mod.WAL_SOURCE == native / "wal_engine.cc"
+    assert crc_mod.BUILD_DIR == REPO / "ceph_tpu_torch" / "_build"
+    for src in (crc_mod.SOURCE, crc_mod.WAL_SOURCE):
+        includes = [line for line in src.read_text().splitlines()
+                    if line.startswith("#include")]
+        assert includes and all("<" in line for line in includes), src
+    for path in PORT_FILES + sorted(native.iterdir()):
+        text = path.read_text()
+        assert "libceph_tpu_native" not in text, path
+        assert "ceph_tpu/native" not in text.replace(
+            "ceph_tpu_torch/native", ""), path
 
 
 def _imported_modules(path: pathlib.Path):
