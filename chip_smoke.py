@@ -99,7 +99,18 @@ and, phase by phase, raising on any failure:
    drained by ``BackfillEngine.drain_pg`` through the repair scheduler
    (class ``backfill``; 64 objects, its bytes and hinfo equal to the old
    store's), and every object read with shards 0, 1, 3 and 4 down through
-   the moved shard.  It fails if B1 or B2 was not launched, if 64
+   the moved shard; then (d) a map-driven backfill on the Ceph docs' 8+4
+   deployment (12 hosts of 4 OSDs, one pool of 512 PGs): the port's CRUSH
+   maps every PG through ``OSDMap.mapping()`` (each up set on distinct
+   hosts, the table equal to the scalar walk), osd.17 is marked out
+   through an ``Incremental``, ``PoolTables.diff`` names the moved PGs
+   (every PG that held it among them) and ``backfill.plan_motion`` groups
+   them; 64 objects of 4 MiB that ``object_to_ps`` sends to one moved PG
+   are written to 12 WalStores in its old up order, the changed shard
+   positions drained by ``BackfillEngine.drain_pg`` onto their new OSDs'
+   stores, osd.17's store deleted and everything read back (bytes, each
+   rebuilt shard and hinfo exact, ``backfill_objects`` 64).  It fails if
+   B1 or B2 was not launched, if 64
    concurrent writes did not coalesce into fewer launches than ops, or if
    a scrub of one group took other than 2 launches; its launches join the
    ``kernels`` line's counts;
@@ -202,11 +213,218 @@ OSD_MOVED = 2                        # (c): the shard backfilled
 OSD_DOWN = [0, 1, 3, 4]              # (c): the shards down for reads
 OSD_BUDGET_S = 120.0
 
+# (d) the map-driven backfill, on the deployment the Ceph docs give for an
+# 8+4 EC pool (docs.ceph.com/en/pacific/rados/operations/
+# erasure-code-profile and .../placement-groups): the profile k=8 m=4
+# crush-failure-domain=host on reed_sol_van, 12 hosts of 4 OSDs, a pool of
+# 512 PGs (512 x 12 / 48 = 128 PG shards per OSD, near the autoscaler's
+# mon_target_pg_per_osd of 100).  One OSD is marked out; the port's CRUSH
+# and PoolTables.diff name the PGs and shard positions that move.
+MAP_HOSTS = 12
+MAP_OSDS_PER_HOST = 4
+MAP_PG_NUM = 512
+MAP_POOL = 1
+MAP_OUT_OSD = 17
+# Ceph's EC rules carry "step set_choose_tries 100" (CrushWrapper::
+# add_simple_rule for indep); the map's one rule takes it as the tunable
+MAP_CHOOSE_TRIES = 100
+MAP_PROFILE = {"plugin": "jax_rs", "technique": "reed_sol_van", "k": "8",
+               "m": "4", "crush-failure-domain": "host"}
+
+
+def ec_pool_map(crush_map, osd_map):
+    """Epoch 1 of the (d) deployment, built from one package's
+    ``placement.crush_map`` and ``osd.osd_map`` modules: 12 hosts of 4
+    OSDs under one root (host h holds OSDs 4h..4h+3), every OSD up and in,
+    the profile's indep rule over hosts (100 choose tries) and the pool of
+    512 PGs."""
+    crush = crush_map.CrushMap()
+    crush.tunables.choose_total_tries = MAP_CHOOSE_TRIES
+    root = crush.add_bucket("default", "root")
+    for h in range(MAP_HOSTS):
+        host = crush.add_bucket(f"host{h}", "host")
+        for i in range(MAP_OSDS_PER_HOST):
+            crush.add_item(host, h * MAP_OSDS_PER_HOST + i, 1.0)
+        crush.add_item(root, host)
+    k, m = int(MAP_PROFILE["k"]), int(MAP_PROFILE["m"])
+    crush.create_ec_rule("ec84", chunk_count=k + m,
+                         failure_domain=MAP_PROFILE["crush-failure-domain"])
+    osdmap = osd_map.OSDMap(crush)
+    inc = osd_map.Incremental(1)
+    for osd in range(MAP_HOSTS * MAP_OSDS_PER_HOST):
+        inc.new_up[osd] = f"osd.{osd}"
+    inc.new_ec_profiles["ec84"] = dict(MAP_PROFILE)
+    inc.new_pools.append(osd_map.PoolInfo(
+        MAP_POOL, "ecpool", "erasure", size=k + m, min_size=k + 1,
+        pg_num=MAP_PG_NUM, crush_rule="ec84", ec_profile="ec84"))
+    osdmap.apply_incremental(inc)
+    return osdmap
+
+
+def check_ec_tables(osdmap, tables) -> list:
+    """Every up set of the pool holds k+m positions, its OSDs on as many
+    distinct hosts, and the cached table equals the scalar CRUSH walk on
+    every PG.  Returns the PGs left with a hole: with as many hosts as
+    chunks, indep CRUSH can run out of tries before it finds the last
+    free host (Ceph's own rule also takes per-rule chooseleaf tries,
+    which this CRUSH does not model)."""
+    size = osdmap.pools[MAP_POOL].size
+    holes = []
+    for ps in range(tables.pg_num):
+        up = tables.lookup(ps)[0]
+        osds = [osd for osd in up if osd >= 0]
+        hosts = {osd // MAP_OSDS_PER_HOST for osd in osds}
+        if len(up) != size or len(hosts) != len(osds):
+            raise AssertionError(f"PG {ps}: up set {up} is not {size} "
+                                 f"positions on distinct hosts")
+        if len(osds) < size:
+            holes.append(ps)
+        raw = osdmap.mapping().raw_row(MAP_POOL, ps)
+        if raw != osdmap._pg_to_raw_osds_scalar(MAP_POOL, ps):
+            raise AssertionError(f"PG {ps}: the mapping's row {raw} differs "
+                                 f"from the scalar CRUSH walk")
+    return holes
+
+
+def map_motion(osdmap, osd_map, backfill) -> dict:
+    """Mark MAP_OUT_OSD out through an Incremental and plan the motion:
+    the pool's up/acting tables before and after, their diff (every PG
+    that held the OSD must be in it), each moved PG's (old, new) up rows,
+    ``backfill.plan_motion``'s groups, and the PG wave (d) drains: the
+    moved PG with the most shard positions changed (lowest ps on ties)
+    among those left with a complete up set."""
+    before = osdmap.mapping().up_acting_tables(MAP_POOL)
+    osdmap.apply_incremental(osd_map.Incremental(
+        osdmap.epoch + 1, new_weights={MAP_OUT_OSD: 0}))
+    after = osdmap.mapping().up_acting_tables(MAP_POOL)
+    moved = [int(ps) for ps in after.diff(before)]
+    held = [int(ps) for ps in before.pgs_of(MAP_OUT_OSD)]
+    if not set(held) <= set(moved):
+        raise AssertionError(f"PGs {sorted(set(held) - set(moved))} held "
+                             f"osd.{MAP_OUT_OSD} but are not in the diff")
+    rows = {ps: (before.lookup(ps)[0], after.lookup(ps)[0]) for ps in moved}
+    plan = backfill.plan_motion({MAP_POOL: rows})
+    # with k+m hosts, a position whose host lost an OSD can only move to
+    # that host's other OSDs; indep CRUSH may exhaust its tries first and
+    # leave a hole (the PG stays undersized): such a PG has no target
+    undersized = [ps for ps in moved if min(rows[ps][1]) < 0]
+
+    def positions(ps):
+        old, new = rows[ps]
+        return [i for i, (a, b) in enumerate(zip(old, new)) if a != b]
+
+    ps = min(set(held) - set(undersized),
+             key=lambda p: (-len(positions(p)), p))
+    return {"before": before, "after": after, "moved": moved, "held": held,
+            "undersized": undersized, "rows": rows, "plan": plan, "ps": ps,
+            "positions": positions(ps), "epoch": osdmap.epoch}
+
+
+def pg_object_names(object_to_ps, ps: int, count: int, seed: int) -> list:
+    """``count`` RBD-style object names that ``object_to_ps`` sends to PG
+    ``ps`` of the pool, drawn in order from a seeded sequence."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = []
+    while len(names) < count:
+        for v in rng.integers(0, 2**63, 4096, dtype=np.int64):
+            name = f"rbd_data.{int(v):016x}"
+            if object_to_ps(name, MAP_PG_NUM) == ps:
+                names.append(name)
+                if len(names) == count:
+                    break
+    return names
+
+
+async def map_drain(ns, codec, root: str, motion: dict, datas: dict,
+                    wave=None) -> dict:
+    """Wave (d)'s drain, over one package's OSD surface ``ns`` (WalStore,
+    MemStore, Transaction, CollectionId, GHObject, LocalShard, ECBackend,
+    BackfillEngine, RepairScheduler, pg_log, HINFO_ATTR).
+
+    One WalStore per OSD of the moved PG's old up set under ``root``, each
+    holding the collection of its shard position; ``datas`` written
+    through a coalescing ECBackend.  Every position whose OSD changed gets
+    its new OSD's store (a fresh one, or the store of an OSD already in
+    the set) and ``BackfillEngine.drain_pg`` rebuilds it through the
+    repair scheduler.  The out OSD's store is then unmounted and deleted
+    and everything read back.  ``wave(label, backend, nbytes, fn)`` runs
+    each step (the chip's instrumented runner; plain awaits by default).
+    Returns the read-back verdict, the old and rebuilt shard images
+    (bytes and hinfo) and the backfill counters."""
+    import asyncio
+    import os
+    import shutil
+
+    if wave is None:
+        async def wave(label, be, nbytes, fn):
+            return await fn()
+    ps, pool = motion["ps"], MAP_POOL
+    old_up, new_up = motion["rows"][ps]
+    stores = {}
+
+    async def store_of(osd):
+        if osd not in stores:
+            stores[osd] = ns.WalStore(os.path.join(root, f"osd.{osd}"))
+            await stores[osd].mount()
+        return stores[osd]
+
+    async def shard(osd, pos):
+        store = await store_of(osd)
+        cid = ns.CollectionId(pool, ps, shard=pos)
+        await store.queue_transactions(
+            ns.Transaction().create_collection(cid))
+        return ns.LocalShard(store, cid, pool=pool, shard=pos)
+
+    shards = {pos: await shard(osd, pos) for pos, osd in enumerate(old_up)}
+    be = ns.ECBackend(codec, shards, stripe_unit=512, coalesce=True)
+    names = list(datas)
+    total = sum(len(d) for d in datas.values())
+    await wave("d: write", be, total, lambda: asyncio.gather(*(
+        be.write(nm, d) for nm, d in datas.items())))
+
+    def image(sh):
+        out = {}
+        for nm in names:
+            oid = ns.GHObject(pool, nm, shard=sh.shard)
+            out[nm] = (sh.store.read(sh.cid, oid),
+                       sh.store.getattrs(sh.cid, oid)[ns.HINFO_ATTR])
+        return out
+
+    positions = motion["positions"]
+    old = {pos: image(shards[pos]) for pos in positions}
+    for pos in positions:
+        be.shards[pos] = await shard(new_up[pos], pos)
+    meta = ns.MemStore()
+    await meta.queue_transactions(ns.Transaction().create_collection(
+        ns.pg_log.meta_cid(pool, ps)))
+    engine = ns.BackfillEngine(ns.RepairScheduler(be.perf), be.perf,
+                               store=meta)
+    done = await wave(f"d: backfill {len(positions)} positions of PG "
+                      f"{pool}.{ps:x}", be, total, lambda: engine.drain_pg(
+                          be, {nm: list(positions) for nm in names},
+                          pool=pool, ps=ps, epoch=motion["epoch"]))
+    counters = {key: be.perf.value(key) for key in (
+        "backfill_objects", "backfill_batches", "backfill_bytes")}
+    rebuilt = {pos: image(be.shards[pos]) for pos in positions}
+    gone = stores.pop(MAP_OUT_OSD)
+    await gone.umount()
+    shutil.rmtree(os.path.join(root, f"osd.{MAP_OUT_OSD}"))
+    got = await wave(f"d: read, osd.{MAP_OUT_OSD} gone", be, total,
+                     lambda: asyncio.gather(*(be.read(nm) for nm in names)))
+    for store in stores.values():
+        await store.umount()
+    return {"done": sorted(done), "names": sorted(names),
+            "reads": got == [datas[nm] for nm in names], "old": old,
+            "rebuilt": rebuilt, "counters": counters}
+
 
 def osd_phase(dev, seed: int) -> dict:
     """Drive the port's OSD data path (``ECBackend`` over ``MemStore``
-    shards, then ``WalStore`` shards with a backfill) on the CUDA device
-    ``dev`` and check every result; return
+    shards, then ``WalStore`` shards with a backfill, then a backfill
+    that the port's OSD map plans) on the CUDA device ``dev`` and check
+    every result; return
     per-wave readings.  Each B1/B2 launch is bracketed by CUDA events (an
     upper bound of its device time: the wrapper's host work after the
     first event is included)."""
@@ -546,11 +764,69 @@ def osd_phase(dev, seed: int) -> dict:
             f"{OSD_MOVED} and degraded reads with {OSD_DOWN} down through "
             f"the moved shard bit-identical")
 
+    async def mapped(root):
+        from types import SimpleNamespace
+
+        from ceph_tpu_torch.osd import backfill, osd_map
+        from ceph_tpu_torch.osd.pg import object_to_ps
+        from ceph_tpu_torch.placement import crush_map
+
+        t0 = time.perf_counter()
+        osdmap = ec_pool_map(crush_map, osd_map)
+        tables = osdmap.mapping().up_acting_tables(MAP_POOL)
+        t1 = time.perf_counter()
+        holes = check_ec_tables(osdmap, tables)
+        t2 = time.perf_counter()
+        motion = map_motion(osdmap, osd_map, backfill)
+        t3 = time.perf_counter()
+        ps, positions = motion["ps"], motion["positions"]
+        old_up, new_up = motion["rows"][ps]
+        names = pg_object_names(object_to_ps, ps, OSD_OBJECTS, seed)
+        t4 = time.perf_counter()
+        rec = {"osds": MAP_HOSTS * MAP_OSDS_PER_HOST, "hosts": MAP_HOSTS,
+               "pg_num": MAP_PG_NUM, "out": MAP_OUT_OSD,
+               "pgs_with_holes": holes,
+               "map_ms": (t1 - t0) * 1e3, "scalar_check_ms": (t2 - t1) * 1e3,
+               "remap_diff_plan_ms": (t3 - t2) * 1e3,
+               "names_ms": (t4 - t3) * 1e3,
+               "held_pgs": len(motion["held"]),
+               "moved_pgs": motion["plan"]["moved_pgs"],
+               "undersized_pgs": len(motion["undersized"]),
+               "groups": len(motion["plan"]["groups"]), "pg": ps,
+               "positions": positions, "old_up": old_up, "new_up": new_up}
+        log(f"[osd] (d) map {json.dumps(rec)}")
+        blob = rng.bytes(OSD_OBJECTS * OSD_OBJECT_BYTES)
+        datas = {nm: blob[i * OSD_OBJECT_BYTES:(i + 1) * OSD_OBJECT_BYTES]
+                 for i, nm in enumerate(names)}
+        ns = SimpleNamespace(
+            WalStore=WalStore, MemStore=MemStore, Transaction=Transaction,
+            CollectionId=CollectionId, GHObject=GHObject,
+            LocalShard=LocalShard, ECBackend=ECBackend,
+            BackfillEngine=BackfillEngine, RepairScheduler=RepairScheduler,
+            pg_log=pg_log, HINFO_ATTR=HINFO_ATTR)
+        res = await map_drain(ns, codec, root, motion, datas, wave=wave)
+        if res["done"] != sorted(names) or not res["reads"]:
+            raise AssertionError(f"map-driven backfill moved "
+                                 f"{len(res['done'])} objects, read-back "
+                                 f"equal: {res['reads']}")
+        if res["rebuilt"] != res["old"]:
+            raise AssertionError("a rebuilt shard or hinfo differs from the "
+                                 "old store's")
+        if res["counters"]["backfill_objects"] != OSD_OBJECTS:
+            raise AssertionError(f"backfill counters {res['counters']}")
+        log(f"[osd] (d) {OSD_OBJECTS} x {OSD_OBJECT_BYTES} B in PG "
+            f"{MAP_POOL}.{ps:x}: positions {positions} rebuilt by "
+            f"BackfillEngine.drain_pg ({res['counters']}), every shard and "
+            f"hinfo equal to the old stores', read back bit-identical with "
+            f"osd.{MAP_OUT_OSD}'s store gone")
+
     try:
         asyncio.run(classic())
         asyncio.run(resident())
         with tempfile.TemporaryDirectory(prefix="chip_smoke_osd_") as root:
             asyncio.run(durable(root))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as root:
+            asyncio.run(mapped(root))
     finally:
         for name, fn in shimmed.items():
             ck.KERNELS[name] = fn

@@ -113,6 +113,8 @@ def test_checkpoint_then_wal_delta(pkg, tmp_path):
         s.checkpoint_bytes = 1 << 30
         await s.queue_transactions(
             pkg.Transaction().write(pkg.CID, pkg.OID, 4, b"+tail"))
+        if s._ckpt_task is not None:
+            await s._ckpt_task
         s2 = await _mounted(pkg.WalStore, tmp_path)
         assert s2.read(pkg.CID, pkg.OID) == b"base+tail"
     _run(run())

@@ -203,6 +203,60 @@ with tempfile.TemporaryDirectory() as root:
 """ + CHECK
 
 
+# Placement, the OSD map and the OSD's host helpers: every module of the
+# slice imported, chip_smoke's 48-OSD map built and a sample of its PGs
+# mapped, a replicated pool through the bulk chooser, the crushtool text
+# round trip, the moved PGs' motion plan, object names to PGs, the
+# scheduler on an injected clock, the op tracker, a hit set and a SnapSet.
+BLOCKED_PLACEMENT_RUN = BLOCKER + r"""
+import asyncio
+import chip_smoke as cs
+import ceph_tpu_torch.osd.codes
+import ceph_tpu_torch.placement
+from ceph_tpu_torch.osd import backfill, osd_map, pg, scheduler, op_tracker
+from ceph_tpu_torch.osd.hitset import BloomHitSet
+from ceph_tpu_torch.osd.snaps import SnapSet, mapper_cid, mapper_oid
+from ceph_tpu_torch.placement import (bulk, compiler, crush_map, hashing,
+                                      mapping, straw2, tester)
+m = cs.ec_pool_map(crush_map, osd_map)
+assert len(m.osds) == 48 and m.pools[cs.MAP_POOL].pg_num == 512
+rows = [m._pg_to_raw_osds_scalar(cs.MAP_POOL, ps) for ps in range(0, 512, 64)]
+assert all(len({o // 4 for o in r if o >= 0}) == 12 for r in rows)
+text = compiler.decompile(m.crush)
+assert compiler.decompile(compiler.compile_text(text)) == text
+m.crush.create_replicated_rule("rep", failure_domain="host")
+inc = osd_map.Incremental(2, new_pools=[osd_map.PoolInfo(
+    2, "rbd", size=3, pg_num=256, crush_rule="rep")])
+m.apply_incremental(osd_map.Incremental.from_dict(inc.to_dict()))
+before = m.mapping().up_acting_tables(2)
+m.apply_incremental(osd_map.Incremental(3, new_weights={17: 0}))
+after = m.mapping().up_acting_tables(2)
+moved = {int(ps): (before.lookup(ps)[0], after.lookup(ps)[0])
+         for ps in after.diff(before)}
+assert set(int(p) for p in before.pgs_of(17)) <= set(moved)
+assert backfill.plan_motion({2: moved})["moved_pgs"] == len(moved)
+assert tester.simulate(m.crush, "rep", 3, 0, 64)["bad_mappings"] == 0
+names = cs.pg_object_names(pg.object_to_ps, 5, 4, 1)
+assert all(pg.object_to_ps(nm, 512) == 5 for nm in names)
+
+async def sched():
+    clock = lambda: 0.0
+    s = scheduler.MClockScheduler(clock=clock)
+    await asyncio.gather(*(s.acquire("client") for _ in range(8)))
+    s.shutdown()
+    return s.stats()
+
+assert asyncio.run(sched()) == {"client": 8}
+tracker = op_tracker.OpTracker()
+tracker.finish(tracker.create("op"))
+hs = BloomHitSet(target_size=64)
+hs.insert("obj")
+assert hs.contains("obj")
+assert SnapSet(seq=2, clones=[2], clone_snaps={2: [1, 2]}).resolve_read(1) == 2
+mapper_cid(1, 0), mapper_oid(1)
+""" + CHECK
+
+
 def _run_blocked(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -229,6 +283,10 @@ def test_osd_path_runs_with_jax_and_ceph_tpu_blocked():
 
 def test_substrate_runs_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_SUBSTRATE_RUN)
+
+
+def test_placement_and_osd_map_run_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_PLACEMENT_RUN)
 
 
 def test_native_library_builds_from_the_ports_sources_only():
@@ -334,3 +392,88 @@ def test_device_shard_cache_sharding_raises_naming_a10():
     cache.set_sharding(None)
     with pytest.raises(NotImplementedError, match="A10"):
         cache.set_sharding(object())
+
+
+# -- the port's copies of reference modules -----------------------------------
+
+# Modules that equal their reference apart from imports and docstrings:
+# placement/, the OSD map and the OSD's host helpers, and the earlier
+# slices' copies.
+COPIED = [
+    "placement/__init__.py", "placement/hashing.py", "placement/straw2.py",
+    "placement/crush_map.py", "placement/bulk.py", "placement/mapping.py",
+    "placement/compiler.py", "placement/tester.py", "osd/codes.py",
+    "osd/osd_map.py", "osd/pg.py", "osd/scheduler.py", "osd/op_tracker.py",
+    "osd/snaps.py", "osd/hitset.py",
+]
+COPIED_EARLIER = [
+    "common/admin_socket.py", "common/backoff.py", "common/cache.py",
+    "common/compressor.py", "common/events.py", "common/failpoint.py",
+    "common/lockdep.py", "common/perf.py", "common/throttle.py",
+    "common/tracing.py", "msg/codec.py", "msg/message.py",
+    "msg/messenger.py", "osd/backfill.py", "osd/pg_log.py", "osd/repair.py",
+    "osd/scrub.py", "store/filestore.py", "store/memstore.py",
+    "store/native_wal.py", "store/object_store.py", "store/txcodec.py",
+    "store/types.py", "store/walstore.py",
+]
+
+
+class _Normalise(ast.NodeTransformer):
+    """Drop every docstring and name the port's imports as the
+    reference's."""
+
+    def _strip(self, node):
+        self.generic_visit(node)
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        return node
+
+    visit_Module = visit_ClassDef = _strip
+    visit_FunctionDef = visit_AsyncFunctionDef = _strip
+
+    @staticmethod
+    def _ref(name):
+        if name == "ceph_tpu_torch" or name.startswith("ceph_tpu_torch."):
+            return "ceph_tpu" + name[len("ceph_tpu_torch"):]
+        return name
+
+    def visit_ImportFrom(self, node):
+        if node.module:
+            node.module = self._ref(node.module)
+        return node
+
+    def visit_Import(self, node):
+        for alias in node.names:
+            alias.name = self._ref(alias.name)
+        return node
+
+
+def _normalised(path: pathlib.Path) -> str:
+    return ast.dump(_Normalise().visit(ast.parse(path.read_text())))
+
+
+@pytest.mark.parametrize("rel", COPIED + COPIED_EARLIER)
+def test_copied_module_equals_its_reference(rel):
+    port = REPO / "ceph_tpu_torch" / rel
+    assert _normalised(port) == _normalised(REPO / "ceph_tpu" / rel)
+
+
+@pytest.mark.parametrize("rel,names", [
+    ("osd/osd_map.py", {"ceph_tpu_torch.osd.pg",
+                        "ceph_tpu_torch.placement.mapping"}),
+    ("osd/snaps.py", {"ceph_tpu_torch.osd.pg_log"}),
+    ("placement/tester.py", {"ceph_tpu_torch.placement.compiler"}),
+    ("osd/op_tracker.py", {"ceph_tpu_torch.common.tracing"}),
+])
+def test_lazy_imports_name_the_port(rel, names):
+    """The imports made inside functions (osd_map's PG helpers and
+    mapping, snaps' PG log names, tester's compiler) are the port's: the
+    static scan above walks them too, and they are really there."""
+    tree = ast.parse((REPO / "ceph_tpu_torch" / rel).read_text())
+    lazy = {node.module for fn in ast.walk(tree)
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+            for node in ast.walk(fn) if isinstance(node, ast.ImportFrom)}
+    assert lazy == names
