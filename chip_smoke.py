@@ -109,7 +109,17 @@ and, phase by phase, raising on any failure:
    are written to 12 WalStores in its old up order, the changed shard
    positions drained by ``BackfillEngine.drain_pg`` onto their new OSDs'
    stores, osd.17's store deleted and everything read back (bytes, each
-   rebuilt shard and hinfo exact, ``backfill_objects`` 64).  It fails if
+   rebuilt shard and hinfo exact, ``backfill_objects`` 64); then (e) the
+   same deployment committed by a quorum of three port ``Monitor``s
+   (``mon_map_wave``): 48 OSDs boot through ``MonClient.send_boot``, a
+   port ``Rados`` client injects (d)'s CRUSH map (``osd setcrushmap``),
+   sets the 8+4 profile and creates the pool of 512 PGs, and its map at
+   the pool's epoch must give (d)'s table row for row; ``osd out 17``
+   through the client, and the epoch its subscription delivers must move
+   exactly (d)'s PGs with (d)'s rows and ``plan_motion`` groups; the moved
+   PG with the most changed positions other than (d)'s is targeted by the
+   client's ``Objecter`` at its new primary for 64 object names, and
+   drained as in (d) (one "[mon]" line per step).  It fails if
    B1 or B2 was not launched, if 64
    concurrent writes did not coalesce into fewer launches than ops, or if
    a scrub of one group took other than 2 launches; its launches join the
@@ -232,12 +242,12 @@ MAP_PROFILE = {"plugin": "jax_rs", "technique": "reed_sol_van", "k": "8",
                "m": "4", "crush-failure-domain": "host"}
 
 
-def ec_pool_map(crush_map, osd_map):
+def ec_pool_map(crush_map, osd_map, pg_num: int = MAP_PG_NUM):
     """Epoch 1 of the (d) deployment, built from one package's
     ``placement.crush_map`` and ``osd.osd_map`` modules: 12 hosts of 4
     OSDs under one root (host h holds OSDs 4h..4h+3), every OSD up and in,
     the profile's indep rule over hosts (100 choose tries) and the pool of
-    512 PGs."""
+    ``pg_num`` PGs (512)."""
     crush = crush_map.CrushMap()
     crush.tunables.choose_total_tries = MAP_CHOOSE_TRIES
     root = crush.add_bucket("default", "root")
@@ -256,7 +266,7 @@ def ec_pool_map(crush_map, osd_map):
     inc.new_ec_profiles["ec84"] = dict(MAP_PROFILE)
     inc.new_pools.append(osd_map.PoolInfo(
         MAP_POOL, "ecpool", "erasure", size=k + m, min_size=k + 1,
-        pg_num=MAP_PG_NUM, crush_rule="ec84", ec_profile="ec84"))
+        pg_num=pg_num, crush_rule="ec84", ec_profile="ec84"))
     osdmap.apply_incremental(inc)
     return osdmap
 
@@ -287,16 +297,24 @@ def check_ec_tables(osdmap, tables) -> list:
 
 
 def map_motion(osdmap, osd_map, backfill) -> dict:
-    """Mark MAP_OUT_OSD out through an Incremental and plan the motion:
-    the pool's up/acting tables before and after, their diff (every PG
-    that held the OSD must be in it), each moved PG's (old, new) up rows,
-    ``backfill.plan_motion``'s groups, and the PG wave (d) drains: the
-    moved PG with the most shard positions changed (lowest ps on ties)
-    among those left with a complete up set."""
+    """Mark MAP_OUT_OSD out through an Incremental and plan the motion
+    (``motion_between`` the pool's tables before and after)."""
     before = osdmap.mapping().up_acting_tables(MAP_POOL)
     osdmap.apply_incremental(osd_map.Incremental(
         osdmap.epoch + 1, new_weights={MAP_OUT_OSD: 0}))
     after = osdmap.mapping().up_acting_tables(MAP_POOL)
+    return {**motion_between(before, after, backfill),
+            "epoch": osdmap.epoch}
+
+
+def motion_between(before, after, backfill, exclude=()) -> dict:
+    """The motion from the pool's up/acting tables ``before`` MAP_OUT_OSD
+    was marked out to those ``after``: their diff (every PG that held the
+    OSD must be in it), each moved PG's (old, new) up rows,
+    ``backfill.plan_motion``'s groups, and the PG to drain: the moved PG
+    with the most shard positions changed (lowest ps on ties) among those
+    that held the OSD and are left with a complete up set, other than
+    ``exclude``."""
     moved = [int(ps) for ps in after.diff(before)]
     held = [int(ps) for ps in before.pgs_of(MAP_OUT_OSD)]
     if not set(held) <= set(moved):
@@ -313,16 +331,18 @@ def map_motion(osdmap, osd_map, backfill) -> dict:
         old, new = rows[ps]
         return [i for i, (a, b) in enumerate(zip(old, new)) if a != b]
 
-    ps = min(set(held) - set(undersized),
+    ps = min(set(held) - set(undersized) - set(exclude),
              key=lambda p: (-len(positions(p)), p))
     return {"before": before, "after": after, "moved": moved, "held": held,
             "undersized": undersized, "rows": rows, "plan": plan, "ps": ps,
-            "positions": positions(ps), "epoch": osdmap.epoch}
+            "positions": positions(ps)}
 
 
-def pg_object_names(object_to_ps, ps: int, count: int, seed: int) -> list:
+def pg_object_names(object_to_ps, ps: int, count: int, seed: int,
+                    pg_num: int = MAP_PG_NUM) -> list:
     """``count`` RBD-style object names that ``object_to_ps`` sends to PG
-    ``ps`` of the pool, drawn in order from a seeded sequence."""
+    ``ps`` of a pool of ``pg_num`` PGs, drawn in order from a seeded
+    sequence."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -330,7 +350,7 @@ def pg_object_names(object_to_ps, ps: int, count: int, seed: int) -> list:
     while len(names) < count:
         for v in rng.integers(0, 2**63, 4096, dtype=np.int64):
             name = f"rbd_data.{int(v):016x}"
-            if object_to_ps(name, MAP_PG_NUM) == ps:
+            if object_to_ps(name, pg_num) == ps:
                 names.append(name)
                 if len(names) == count:
                     break
@@ -338,7 +358,7 @@ def pg_object_names(object_to_ps, ps: int, count: int, seed: int) -> list:
 
 
 async def map_drain(ns, codec, root: str, motion: dict, datas: dict,
-                    wave=None) -> dict:
+                    wave=None, tag: str = "d") -> dict:
     """Wave (d)'s drain, over one package's OSD surface ``ns`` (WalStore,
     MemStore, Transaction, CollectionId, GHObject, LocalShard, ECBackend,
     BackfillEngine, RepairScheduler, pg_log, HINFO_ATTR).
@@ -350,7 +370,8 @@ async def map_drain(ns, codec, root: str, motion: dict, datas: dict,
     the set) and ``BackfillEngine.drain_pg`` rebuilds it through the
     repair scheduler.  The out OSD's store is then unmounted and deleted
     and everything read back.  ``wave(label, backend, nbytes, fn)`` runs
-    each step (the chip's instrumented runner; plain awaits by default).
+    each step (the chip's instrumented runner; plain awaits by default),
+    its labels led by ``tag``.
     Returns the read-back verdict, the old and rebuilt shard images
     (bytes and hinfo) and the backfill counters."""
     import asyncio
@@ -381,7 +402,7 @@ async def map_drain(ns, codec, root: str, motion: dict, datas: dict,
     be = ns.ECBackend(codec, shards, stripe_unit=512, coalesce=True)
     names = list(datas)
     total = sum(len(d) for d in datas.values())
-    await wave("d: write", be, total, lambda: asyncio.gather(*(
+    await wave(f"{tag}: write", be, total, lambda: asyncio.gather(*(
         be.write(nm, d) for nm, d in datas.items())))
 
     def image(sh):
@@ -401,7 +422,7 @@ async def map_drain(ns, codec, root: str, motion: dict, datas: dict,
         ns.pg_log.meta_cid(pool, ps)))
     engine = ns.BackfillEngine(ns.RepairScheduler(be.perf), be.perf,
                                store=meta)
-    done = await wave(f"d: backfill {len(positions)} positions of PG "
+    done = await wave(f"{tag}: backfill {len(positions)} positions of PG "
                       f"{pool}.{ps:x}", be, total, lambda: engine.drain_pg(
                           be, {nm: list(positions) for nm in names},
                           pool=pool, ps=ps, epoch=motion["epoch"]))
@@ -411,7 +432,7 @@ async def map_drain(ns, codec, root: str, motion: dict, datas: dict,
     gone = stores.pop(MAP_OUT_OSD)
     await gone.umount()
     shutil.rmtree(os.path.join(root, f"osd.{MAP_OUT_OSD}"))
-    got = await wave(f"d: read, osd.{MAP_OUT_OSD} gone", be, total,
+    got = await wave(f"{tag}: read, osd.{MAP_OUT_OSD} gone", be, total,
                      lambda: asyncio.gather(*(be.read(nm) for nm in names)))
     for store in stores.values():
         await store.umount()
@@ -420,14 +441,191 @@ async def map_drain(ns, codec, root: str, motion: dict, datas: dict,
             "rebuilt": rebuilt, "counters": counters}
 
 
+# (e) the (d) deployment committed by a quorum of three monitors in this
+# process (local:// addresses); every wait is bounded by MON_WAIT_S.
+MON_NAMES = ("a", "b", "c")
+MON_WAIT_S = 60.0
+
+
+def tables_equal(a, b) -> bool:
+    """Two PoolTables hold the same rows, lengths and primaries."""
+    import numpy as np
+
+    return a.pg_num == b.pg_num and all(
+        np.array_equal(np.asarray(getattr(a, k)), np.asarray(getattr(b, k)))
+        for k in ("up", "up_len", "up_primary", "acting", "acting_len",
+                  "acting_primary"))
+
+
+async def mon_map_wave(ns, crush_text: str, pg_num: int, motion_d: dict,
+                       count: int, seed: int, drain=None,
+                       note=log) -> dict:
+    """Wave (e)'s control plane, over one package's mon and client surface
+    ``ns`` (Monitor, MonClient, Rados, ConfigProxy, backfill,
+    object_to_ps, reset_local_namespace).
+
+    Three mons form a quorum; the deployment's 48 OSDs boot through a
+    ``MonClient`` session each (no OSD daemon runs); a ``Rados`` client
+    injects ``crush_text`` (``osd setcrushmap``), sets the 8+4 profile and
+    creates the erasure pool of ``pg_num`` PGs on rule ec84.  The client's
+    map at the pool's epoch must give ``motion_d``'s table before the
+    out-mark, row for row.  ``osd out`` MAP_OUT_OSD goes through the
+    client; at the epoch its subscription delivers, the tables, the diff,
+    the moved rows and the ``plan_motion`` groups must be ``motion_d``'s.
+    The moved PG to drain is chosen as (d) chose its own, (d)'s excluded;
+    ``count`` object names are drawn for it and the client's ``Objecter``
+    must target each at the new up set's primary.  ``drain(motion,
+    names)`` then runs while the cluster is up.  The client shuts down,
+    then the OSD sessions, then the mons; a "[mon]" line is noted for
+    each step.  Raises on any difference; returns the motion, the names,
+    the targets, the epochs and the drain's result."""
+    import asyncio
+
+    async def until(cond, what):
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + MON_WAIT_S
+        while not cond():
+            if loop.time() > deadline:
+                raise AssertionError(f"no {what} in {MON_WAIT_S:.0f} s")
+            await asyncio.sleep(0.01)
+
+    def line(step, t0, **kw):
+        rec = {"step": step, "s": time.perf_counter() - t0, **kw}
+        note(f"[mon] {json.dumps(rec)}")
+
+    ns.reset_local_namespace()
+    monmap = {n: f"local://mon.{n}" for n in MON_NAMES}
+    mons, sessions, rados = [], [], None
+    try:
+        t0 = time.perf_counter()
+        for n in MON_NAMES:
+            mons.append(ns.Monitor(n, monmap, ns.ConfigProxy()))
+            await mons[-1].start()
+
+        def quorate():
+            leaders = {m.elector.leader for m in mons}
+            return (len(leaders) == 1 and None not in leaders
+                    and all(m.is_leader or m.elector.in_quorum()
+                            for m in mons)
+                    and any(m.is_leader and m.paxos.ready
+                            and len(m.elector.quorum) == len(mons)
+                            and m.osd_monitor.osdmap.epoch >= 1
+                            for m in mons))
+
+        await until(quorate, "quorum of three")
+        leader = next(m for m in mons if m.is_leader)
+        line("quorum", t0, leader=leader.name, quorum=leader.elector.quorum,
+             epoch=leader.osd_monitor.osdmap.epoch)
+
+        t0 = time.perf_counter()
+        e0 = leader.osd_monitor.osdmap.epoch
+        n_osds = MAP_HOSTS * MAP_OSDS_PER_HOST
+
+        async def boot(osd):
+            mc = ns.MonClient(f"osd.{osd}", monmap, ns.ConfigProxy())
+            sessions.append(mc)
+            await mc.start(MON_WAIT_S)
+            mc.sub_want("osdmap")
+            mc.renew_subs()
+            await mc.send_boot(osd, f"local://osd.{osd}",
+                               host=f"host{osd // MAP_OSDS_PER_HOST}",
+                               timeout=MON_WAIT_S)
+
+        await asyncio.gather(*(boot(osd) for osd in range(n_osds)))
+        booted = leader.osd_monitor.osdmap
+        if sorted(o for o in booted.osds if booted.is_up(o)) != list(
+                range(n_osds)):
+            raise AssertionError(f"not every OSD of {n_osds} is up")
+        line("boot", t0, osds=n_osds, epochs=booted.epoch - e0,
+             epoch=booted.epoch)
+
+        t0 = time.perf_counter()
+        rados = ns.Rados(monmap, ns.ConfigProxy(), name="client.admin")
+        await rados.connect(MON_WAIT_S)
+        line("connect", t0, epoch=rados.monc.osdmap.epoch)
+
+        async def command(prefix, **kw):
+            t0 = time.perf_counter()
+            r = await rados.mon_command(prefix, timeout=MON_WAIT_S, **kw)
+            if r["rc"] != 0:
+                raise AssertionError(f"{prefix}: {r}")
+            line("command", t0, prefix=prefix,
+                 epoch=leader.osd_monitor.osdmap.epoch)
+            return r
+
+        await command("osd setcrushmap", map=crush_text)
+        await command("osd erasure-code-profile set", name="ec84",
+                      profile=dict(MAP_PROFILE))
+        t0 = time.perf_counter()
+        pool_id = await rados.pool_create(
+            "ecpool", pool_type="erasure", erasure_code_profile="ec84",
+            crush_rule="ec84", pg_num=pg_num)
+        if pool_id != MAP_POOL:
+            raise AssertionError(f"the pool is {pool_id}, not {MAP_POOL}")
+        line("command", t0, prefix="osd pool create",
+             epoch=rados.monc.osdmap.epoch)
+
+        async def table(what):
+            """The client's map's table of the pool (the pool's whole
+            host CRUSH, off the event loop so the mons keep their
+            leases)."""
+            m = rados.monc.osdmap
+            t0 = time.perf_counter()
+            t = await asyncio.to_thread(
+                lambda: m.mapping().up_acting_tables(MAP_POOL))
+            line("map", t0, what=what, epoch=m.epoch, pg_num=t.pg_num)
+            return m.epoch, t
+
+        pool_epoch, before = await table("pool created")
+        if not tables_equal(before, motion_d["before"]):
+            raise AssertionError("the committed map's table differs from "
+                                 "the locally built map's")
+        await command("osd out", ids=[MAP_OUT_OSD])
+        await until(lambda: rados.monc.osdmap.osds[MAP_OUT_OSD].weight == 0,
+                    f"epoch with osd.{MAP_OUT_OSD} out at the client")
+        out_epoch, after = await table(f"osd.{MAP_OUT_OSD} out")
+        if not tables_equal(after, motion_d["after"]):
+            raise AssertionError("the table after the out-mark differs from "
+                                 "the locally built map's")
+        motion = {**motion_between(before, after, ns.backfill,
+                                   exclude={motion_d["ps"]}),
+                  "epoch": out_epoch}
+        for key in ("moved", "held", "undersized", "rows", "plan"):
+            if motion[key] != motion_d[key]:
+                raise AssertionError(f"the committed maps' {key} differ "
+                                     f"from the locally built maps'")
+        ps = motion["ps"]
+        names = pg_object_names(ns.object_to_ps, ps, count, seed, pg_num)
+        t0 = time.perf_counter()
+        targets = [rados.objecter._target_for(MAP_POOL, nm) for nm in names]
+        primary = after.lookup(ps)[1]
+        if set(targets) != {primary}:
+            raise AssertionError(f"the Objecter targets {set(targets)} for "
+                                 f"PG {MAP_POOL}.{ps:x}, not {primary}")
+        line("target", t0, pg=ps, positions=motion["positions"],
+             primary=primary, names=len(names))
+        drained = await drain(motion, names) if drain is not None else None
+        return {"motion": motion, "names": names, "targets": targets,
+                "pool_epoch": pool_epoch, "out_epoch": out_epoch,
+                "drained": drained}
+    finally:
+        if rados is not None:
+            await rados.shutdown()
+        for mc in sessions:
+            await mc.shutdown()
+        for mon in mons:
+            await mon.shutdown()
+        ns.reset_local_namespace()
+
+
 def osd_phase(dev, seed: int) -> dict:
     """Drive the port's OSD data path (``ECBackend`` over ``MemStore``
     shards, then ``WalStore`` shards with a backfill, then a backfill
-    that the port's OSD map plans) on the CUDA device ``dev`` and check
-    every result; return
-    per-wave readings.  Each B1/B2 launch is bracketed by CUDA events (an
-    upper bound of its device time: the wrapper's host work after the
-    first event is included)."""
+    that the port's OSD map plans, then one that a port monitor quorum's
+    committed maps plan) on the CUDA device ``dev`` and check every
+    result; return per-wave readings.  Each B1/B2 launch is bracketed by
+    CUDA events (an upper bound of its device time: the wrapper's host
+    work after the first event is included)."""
     import asyncio
     import os
     import tempfile
@@ -495,10 +693,10 @@ def osd_phase(dev, seed: int) -> dict:
 
     waves = []
 
-    async def wave(label, be, nbytes, fn):
+    async def wave(label, be, nbytes, fn, prefix="[osd]"):
         """One wave: its wall time, client GiB/s, launches, the backend's
         summed launch times and the kernels' event time, each against
-        the wall time."""
+        the wall time, logged after ``prefix``."""
         k0 = dict(ck.LAUNCHES)
         p0 = {key: be.perf.value(key) for key in (
             "ec_device_launches", "ec_encode_launch_us",
@@ -526,7 +724,7 @@ def osd_phase(dev, seed: int) -> dict:
         if be.resident is not None:
             rec["resident"] = be.resident_stats()
         waves.append(rec)
-        log(f"[osd] {json.dumps(rec)}")
+        log(f"{prefix} {json.dumps(rec)}")
         return out
 
     async def classic():
@@ -805,20 +1003,70 @@ def osd_phase(dev, seed: int) -> dict:
             BackfillEngine=BackfillEngine, RepairScheduler=RepairScheduler,
             pg_log=pg_log, HINFO_ATTR=HINFO_ATTR)
         res = await map_drain(ns, codec, root, motion, datas, wave=wave)
-        if res["done"] != sorted(names) or not res["reads"]:
-            raise AssertionError(f"map-driven backfill moved "
-                                 f"{len(res['done'])} objects, read-back "
-                                 f"equal: {res['reads']}")
-        if res["rebuilt"] != res["old"]:
-            raise AssertionError("a rebuilt shard or hinfo differs from the "
-                                 "old store's")
-        if res["counters"]["backfill_objects"] != OSD_OBJECTS:
-            raise AssertionError(f"backfill counters {res['counters']}")
+        checked_drain(res, names, "the map-driven backfill")
         log(f"[osd] (d) {OSD_OBJECTS} x {OSD_OBJECT_BYTES} B in PG "
             f"{MAP_POOL}.{ps:x}: positions {positions} rebuilt by "
             f"BackfillEngine.drain_pg ({res['counters']}), every shard and "
             f"hinfo equal to the old stores', read back bit-identical with "
             f"osd.{MAP_OUT_OSD}'s store gone")
+        return osdmap, motion, ns
+
+    def checked_drain(res, names, what):
+        """A drain's verdict: every object moved and read back, every
+        rebuilt shard and hinfo equal to the old store's, 64 objects
+        counted."""
+        if res["done"] != sorted(names) or not res["reads"]:
+            raise AssertionError(f"{what} moved {len(res['done'])} objects, "
+                                 f"read-back equal: {res['reads']}")
+        if res["rebuilt"] != res["old"]:
+            raise AssertionError(f"{what}: a rebuilt shard or hinfo differs "
+                                 f"from the old store's")
+        if res["counters"]["backfill_objects"] != OSD_OBJECTS:
+            raise AssertionError(f"{what}: backfill counters "
+                                 f"{res['counters']}")
+
+    async def monitored(root, osdmap, motion_d, osd_ns):
+        from types import SimpleNamespace
+
+        from ceph_tpu_torch import client, mon
+        from ceph_tpu_torch.common.config import ConfigProxy
+        from ceph_tpu_torch.msg import reset_local_namespace
+        from ceph_tpu_torch.osd import backfill
+        from ceph_tpu_torch.osd.pg import object_to_ps
+        from ceph_tpu_torch.placement import compiler
+
+        ns = SimpleNamespace(
+            Monitor=mon.Monitor, MonClient=mon.MonClient, Rados=client.Rados,
+            ConfigProxy=ConfigProxy, backfill=backfill,
+            object_to_ps=object_to_ps,
+            reset_local_namespace=reset_local_namespace)
+
+        async def mon_wave(label, be, nbytes, fn):
+            return await wave(label, be, nbytes, fn, prefix="[mon]")
+
+        async def drain(motion, names):
+            blob = rng.bytes(OSD_OBJECTS * OSD_OBJECT_BYTES)
+            datas = {nm: blob[i * OSD_OBJECT_BYTES:(i + 1) * OSD_OBJECT_BYTES]
+                     for i, nm in enumerate(names)}
+            res = await map_drain(osd_ns, codec, root, motion, datas,
+                                  wave=mon_wave, tag="e")
+            checked_drain(res, names, "the quorum-driven backfill")
+            return res
+
+        t0 = time.perf_counter()
+        out = await mon_map_wave(ns, compiler.decompile(osdmap.crush),
+                                 MAP_PG_NUM, motion_d, OSD_OBJECTS, seed,
+                                 drain=drain)
+        motion = out["motion"]
+        log(f"[mon] (e) a port quorum committed the {MAP_PG_NUM}-PG pool "
+            f"(epoch {out['pool_epoch']}) and osd.{MAP_OUT_OSD} out (epoch "
+            f"{out['out_epoch']}): the client's tables equal (d)'s, "
+            f"{motion['plan']['moved_pgs']} PGs moved in "
+            f"{len(motion['plan']['groups'])} groups as in (d); PG "
+            f"{MAP_POOL}.{motion['ps']:x} positions {motion['positions']} "
+            f"targeted at osd.{out['targets'][0]} and drained "
+            f"({out['drained']['counters']}), read back bit-identical; "
+            f"{time.perf_counter() - t0:.2f} s")
 
     try:
         asyncio.run(classic())
@@ -826,7 +1074,9 @@ def osd_phase(dev, seed: int) -> dict:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_osd_") as root:
             asyncio.run(durable(root))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_map_") as root:
-            asyncio.run(mapped(root))
+            osdmap, motion, osd_ns = asyncio.run(mapped(root))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mon_") as root:
+            asyncio.run(monitored(root, osdmap, motion, osd_ns))
     finally:
         for name, fn in shimmed.items():
             ck.KERNELS[name] = fn

@@ -257,6 +257,47 @@ mapper_cid(1, 0), mapper_oid(1)
 """ + CHECK
 
 
+# The monitor and the client: a quorum of one port mon, an erasure profile
+# validated and an EC pool created (the mon's codec on the CPU), an OSD
+# booted and marked out, a Rados client following the map.
+BLOCKED_MON_RUN = BLOCKER + r"""
+import asyncio
+import torch
+torch.cuda.is_available = lambda: False
+import ceph_tpu_torch.client.object_cacher
+import ceph_tpu_torch.client.striper
+from ceph_tpu_torch.client import Rados
+from ceph_tpu_torch.mon import MonClient, Monitor
+
+async def run():
+    monmap = {"a": "local://mon.a"}
+    mon = Monitor("a", monmap)
+    await mon.start()
+    osd = MonClient("osd.0", monmap)
+    await osd.start()
+    osd.sub_want("osdmap")
+    osd.renew_subs()
+    await osd.send_boot(0, "local://osd.0", host="h0")
+    rados = Rados(monmap, name="client.admin")
+    await rados.connect()
+    r = await rados.mon_command("osd erasure-code-profile set", name="p",
+                                profile={"plugin": "jax_rs", "k": "2",
+                                         "m": "1"})
+    assert r["rc"] == 0, r
+    assert await rados.pool_create("ec", pool_type="erasure",
+                                   erasure_code_profile="p", pg_num=4) == 1
+    assert (await rados.mon_command("osd out", ids=[0]))["rc"] == 0
+    while rados.monc.osdmap.osds[0].weight != 0:
+        await rados.monc.wait_for_map(rados.monc.osdmap.epoch + 1)
+    assert rados.monc.osdmap.pools[1].size == 3
+    await rados.shutdown()
+    await osd.shutdown()
+    await mon.shutdown()
+
+asyncio.run(run())
+""" + CHECK
+
+
 def _run_blocked(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -287,6 +328,12 @@ def test_substrate_runs_with_jax_and_ceph_tpu_blocked():
 
 def test_placement_and_osd_map_run_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_PLACEMENT_RUN)
+
+
+def test_mon_and_client_run_with_jax_and_ceph_tpu_blocked():
+    """The mon validates profiles on the CPU whether or not a card is
+    there: with CUDA reported absent the erasure pool is still created."""
+    _run_blocked(BLOCKED_MON_RUN)
 
 
 def test_native_library_builds_from_the_ports_sources_only():
@@ -397,9 +444,16 @@ def test_device_shard_cache_sharding_raises_naming_a10():
 # -- the port's copies of reference modules -----------------------------------
 
 # Modules that equal their reference apart from imports and docstrings:
-# placement/, the OSD map and the OSD's host helpers, and the earlier
-# slices' copies.
+# the monitor and the client, placement/, the OSD map and the OSD's host
+# helpers, and the earlier slices' copies.  mon/osd_monitor.py departs by
+# one keyword (``MON_DEPARTURE``).
 COPIED = [
+    "mon/__init__.py", "mon/store.py", "mon/service.py", "mon/paxos.py",
+    "mon/election.py", "mon/sync.py", "mon/config_monitor.py",
+    "mon/log_monitor.py", "mon/health_monitor.py", "mon/auth_monitor.py",
+    "mon/mds_monitor.py", "mon/mgr_stat.py", "mon/monitor.py",
+    "mon/client.py", "client/__init__.py", "client/rados.py",
+    "client/objecter.py", "client/striper.py", "client/object_cacher.py",
     "placement/__init__.py", "placement/hashing.py", "placement/straw2.py",
     "placement/crush_map.py", "placement/bulk.py", "placement/mapping.py",
     "placement/compiler.py", "placement/tester.py", "osd/codes.py",
@@ -461,7 +515,48 @@ def test_copied_module_equals_its_reference(rel):
     assert _normalised(port) == _normalised(REPO / "ceph_tpu" / rel)
 
 
+class _DropMonDeparture(_Normalise):
+    """The port's one departure in mon/osd_monitor.py taken out: the
+    ``device="cpu"`` keyword of the ``factory`` calls that validate an
+    erasure-code profile (``profile set``, erasure ``pool create``).  A mon
+    only reads the codec's chunk counts, so it builds it on the CPU, card
+    or no card."""
+
+    def __init__(self):
+        self.dropped = 0
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        if isinstance(node.func, ast.Attribute) and \
+                node.func.attr == "factory":
+            keep = [kw for kw in node.keywords if not (
+                kw.arg == "device" and isinstance(kw.value, ast.Constant)
+                and kw.value.value == "cpu")]
+            self.dropped += len(node.keywords) - len(keep)
+            node.keywords = keep
+        return node
+
+
+def test_osd_monitor_equals_its_reference_but_for_the_cpu_codec():
+    rel = "mon/osd_monitor.py"
+    drop = _DropMonDeparture()
+    port = ast.dump(drop.visit(ast.parse(
+        (REPO / "ceph_tpu_torch" / rel).read_text())))
+    assert drop.dropped == 2
+    assert port == _normalised(REPO / "ceph_tpu" / rel)
+    assert _normalised(REPO / "ceph_tpu_torch" / rel) != \
+        _normalised(REPO / "ceph_tpu" / rel)
+
+
 @pytest.mark.parametrize("rel,names", [
+    ("mon/monitor.py", {"ceph_tpu_torch.common.admin_socket",
+                        "ceph_tpu_torch.common.log",
+                        "ceph_tpu_torch.common.events"}),
+    ("mon/osd_monitor.py", {"ceph_tpu_torch.placement.compiler"}),
+    ("mon/client.py", {"ceph_tpu_torch.osd.osd_map"}),
+    ("mon/election.py", {"ceph_tpu_torch.mon.paxos"}),
+    ("mon/sync.py", {"ceph_tpu_torch.mon.store"}),
+    ("mon/mds_monitor.py", {"ceph_tpu_torch.msg.message"}),
     ("osd/osd_map.py", {"ceph_tpu_torch.osd.pg",
                         "ceph_tpu_torch.placement.mapping"}),
     ("osd/snaps.py", {"ceph_tpu_torch.osd.pg_log"}),
@@ -469,7 +564,10 @@ def test_copied_module_equals_its_reference(rel):
     ("osd/op_tracker.py", {"ceph_tpu_torch.common.tracing"}),
 ])
 def test_lazy_imports_name_the_port(rel, names):
-    """The imports made inside functions (osd_map's PG helpers and
+    """The imports made inside functions (the monitor's admin socket, log
+    ring and process journal, the OSD monitor's CRUSH compiler, the
+    MonClient's OSD map, the elector's trim window, sync's store
+    transaction, the MDS monitor's message, osd_map's PG helpers and
     mapping, snaps' PG log names, tester's compiler) are the port's: the
     static scan above walks them too, and they are really there."""
     tree = ast.parse((REPO / "ceph_tpu_torch" / rel).read_text())
