@@ -568,11 +568,18 @@ class ECBackend:
         # serve corrupt ranges (version granularity is the object, not
         # the stripe)
         self._dirty: dict[str, set[int]] = {}
+        # the multi-device planes are absent (ROADMAP A10): every batch
+        # takes the single-device plane, and the plane counters the
+        # daemon's "ec mesh stats" reads stay 0
+        self.mesh = None
+        self.mesh_co = None
+        self._mesh_dec_ok = False
         # observability (tests and perf counters read these):
         # *_buckets record the DISTINCT padded batch dims launched — the
         # pow2 shape-bucketing bound on launch shapes is asserted
         # against them
-        self.mesh_stats = {"encode_buckets": set(),
+        self.mesh_stats = {"encodes": 0, "decodes": 0, "repairs": 0,
+                           "encode_buckets": set(),
                            "decode_buckets": set()}
         # hedged reads: a data-shard read still pending after
         # hedge_timeout seconds is raced against a minimum_to_decode

@@ -124,7 +124,31 @@ and, phase by phase, raising on any failure:
    concurrent writes did not coalesce into fewer launches than ops, or if
    a scrub of one group took other than 2 launches; its launches join the
    ``kernels`` line's counts;
-7. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+7. runs the cluster (``cluster_phase``, wave (f)) with the counts set to
+   0: three port ``Monitor``s, twelve port ``OSDDaemon``s (one per CRUSH
+   host, on the card) and a port ``Rados`` client in this process, serving
+   the Ceph docs' 8+4 pool through the daemons' sub-ops over the
+   messenger, on the dev cluster's scale-profile liveness timers.  On
+   WalStores: 64 objects of 4 MiB written concurrently to a pool of one PG
+   and read back (the daemons' coalescer must take them in fewer
+   launches than ops); a pool of 128 PGs, 64 objects of 4 MiB, one OSD
+   killed and marked down by ``osd down``, 16 degraded writes into one
+   PG, every object read degraded, the OSD revived, HEALTH_OK, the batched
+   repair engine's ``ec_repair_stats`` polled over the wire until it
+   reports batches, everything read back; no OSD but the victim may be
+   marked down at any epoch.  Then a second cluster (1 mon, 12 OSDs on
+   MemStores, the resident shard cache, the background deep scrub held
+   off by ``osd set noscrub``): 64 objects of 512 KiB read back warm with
+   no bytes moved to the device and ``ec_resident_stats`` reporting
+   cached shards; then ``osd unset noscrub``, and the batched sweep must
+   verify every object, its CRC by B2 (64 KiB shard streams).  Every
+   read-back is bit-identical.  One "[cluster]" JSON line per step: wall seconds,
+   client GiB/s, kernel launches, the daemons' summed counters and launch
+   seconds, and per map epoch the seconds from the first OSD's map
+   handler to the last's.  It fails if B1 or B2 was not launched or the
+   phase outran its budget (240 s); its launches join the ``kernels``
+   line's counts;
+8. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without CUDA, or when the package is
@@ -616,6 +640,459 @@ async def mon_map_wave(ns, crush_text: str, pg_num: int, motion_d: dict,
         for mon in mons:
             await mon.shutdown()
         ns.reset_local_namespace()
+
+
+# (f) the Ceph docs' 8+4 pool served by OSD daemons: three monitors, twelve
+# OSDDaemons (one per CRUSH host, so every PG spans every OSD) and a Rados
+# client in this process (local://), the daemons' sub-ops over the
+# messenger.  Liveness runs on the dev cluster's scale-profile timers (a
+# pool's map epoch blocks the shared loop for each daemon's CRUSH pass in
+# turn) and the victim is marked down by the operator's "osd down".
+CLUSTER_MONS = 3
+CLUSTER_OSDS = 12
+CLUSTER_PROFILE = dict(MAP_PROFILE)
+# mon_target_pg_per_osd 100 x 12 OSDs / 12 shards, up to a power of two
+CLUSTER_PG_NUM = 128
+CLUSTER_OBJECTS = 64
+CLUSTER_OBJECT_BYTES = 4 << 20
+CLUSTER_DEGRADED = 16
+CLUSTER_RESIDENT_BYTES = 512 << 10   # 64 KiB shard streams: the device CRC
+CLUSTER_VICTIM = 7
+CLUSTER_DEGRADED_PG = 0
+CLUSTER_SCRUB_INTERVAL_S = 0.5
+CLUSTER_BUDGET_S = 240.0
+CLUSTER_WAIT_S = 120.0
+CLUSTER_LIVENESS = ("mon_lease", "mon_lease_interval", "mon_election_timeout",
+                    "mon_tick_interval", "mon_accept_timeout",
+                    "paxos_propose_interval", "osd_heartbeat_interval",
+                    "osd_heartbeat_grace")
+CLUSTER_COUNTERS = ("ec_coalesce_ops", "ec_coalesce_launches",
+                    "ec_device_launches", "ec_encode_launch_us",
+                    "ec_decode_launch_us", "ec_resident_h2d_bytes",
+                    "ec_resident_hits")
+
+
+def pgs_clean(osds) -> bool:
+    """Every primary PG of the OSD daemons ``osds`` is active, with no
+    shard missing and no backfill pending."""
+    return not any(
+        pg.is_primary and (pg.state != "active" or (
+            pg.missing is not None
+            and (pg.missing.by_shard or pg.missing.backfill)))
+        for osd in osds for pg in osd.pgs.values())
+
+
+class _EpochWatch:
+    """Per map epoch, the OSD daemons' map handlers: when the first began,
+    when the last ended, and each one's seconds (the handler of each
+    daemon ``track``ed, timed; a daemon fed a newer map skips one)."""
+
+    def __init__(self):
+        self.handlers: dict[int, list] = {}
+
+    def track(self, osd) -> None:
+        inner = osd.monc.on_osdmap
+        if getattr(inner, "timed", False):
+            return
+
+        async def timed(osdmap):
+            t0 = time.perf_counter()
+            try:
+                await inner(osdmap)
+            finally:
+                self.handlers.setdefault(osdmap.epoch, []).append(
+                    (t0, time.perf_counter()))
+
+        timed.timed = True
+        osd.monc.on_osdmap = timed
+
+    def spread(self, since: int) -> list:
+        """[epoch, seconds from the first handler's start to the last's
+        end, the slowest handler's seconds, the handlers' summed seconds]
+        for each epoch past ``since``."""
+        out = []
+        for e in sorted(self.handlers):
+            if e > since:
+                hs = self.handlers[e]
+                out.append([e, max(b for _, b in hs) - min(a for a, _ in hs),
+                            max(b - a for a, b in hs),
+                            sum(b - a for a, b in hs)])
+        return out
+
+
+async def cluster_wave(ns, store_dir: str, *, pg_num: int = CLUSTER_PG_NUM,
+                       objects: int = CLUSTER_OBJECTS,
+                       object_bytes: int = CLUSTER_OBJECT_BYTES,
+                       degraded: int = CLUSTER_DEGRADED,
+                       resident_bytes: int = CLUSTER_RESIDENT_BYTES,
+                       seed: int = SEED, note=log) -> dict:
+    """Wave (f) over one package's dev cluster ``ns`` (DevCluster, a
+    constructor that places the OSD daemons; SCALE_TEST_OVERRIDES,
+    reset_local_namespace, compiler, object_to_ps; ``launches()``, the kernel counts so
+    far, empty where the package keeps none; ``sync()``, a device
+    barrier).
+
+    Four steps, a "[cluster]" JSON line each (wall seconds, client GiB/s,
+    kernel launches, the daemons' summed counters, and per map epoch the
+    seconds from the first OSD's map handler to the last's):
+
+    1. coalesce: a 12-OSD, 3-mon cluster on WalStores under ``store_dir``
+       with the 8+4 profile on 12 hosts (CRUSH's choose tries at Ceph's
+       EC-rule 100); pool ``coal`` of 1 PG; ``objects`` concurrent writes
+       of ``object_bytes``, each read back; the daemons' coalescer must
+       have taken at least ``objects`` ops in fewer launches than ops;
+    2. repair: pool ``ec`` of ``pg_num`` PGs, ``objects`` writes; the
+       victim OSD killed and marked down through the client, ``degraded``
+       writes more into one PG, every object read while it is down;
+       revived, HEALTH_OK, ``ec_repair_stats`` polled over the wire until
+       the batched engine reports batches; every object read back once
+       every primary PG is clean.  No OSD but the victim may be marked
+       down at any epoch;
+    3. resident: a second cluster, 1 mon and 12 OSDs on MemStores with the
+       resident shard cache and the background deep scrub (held off by
+       ``osd set noscrub``); pool ``res`` of 1 PG, ``objects`` writes of
+       ``resident_bytes``; every object read back warm: no bytes host to
+       device, at least ``objects`` hits, and ``ec_resident_stats`` over
+       the wire reports cached shards;
+    4. scrub: ``osd unset noscrub``, and ``ec_scrub_stats`` polled over
+       the wire until a batched sweep verified every object of ``res``
+       (its CRC on the device where the shard streams are at most 64 KiB),
+       with no error.
+
+    Every read must be bit-identical.  Raises on any failure; returns
+    each step's record."""
+    import asyncio
+
+    import numpy as np
+
+    liveness = {key: ns.SCALE_TEST_OVERRIDES[key] for key in CLUSTER_LIVENESS}
+    rng = np.random.default_rng(seed)
+    k_plus_m = int(CLUSTER_PROFILE["k"]) + int(CLUSTER_PROFILE["m"])
+    daemons: dict[int, object] = {}
+    steps: dict[str, dict] = {}
+
+    def adopt(cluster, watch) -> None:
+        for osd in cluster.osds.values():
+            daemons[id(osd)] = osd
+            watch.track(osd)
+
+    def summed() -> dict:
+        return {key: sum(o.perf.value(key) for o in daemons.values())
+                for key in CLUSTER_COUNTERS}
+
+    async def until(cond, what):
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + CLUSTER_WAIT_S
+        while not await cond():
+            if loop.time() > deadline:
+                raise AssertionError(f"no {what} in {CLUSTER_WAIT_S:.0f} s")
+            await asyncio.sleep(0.25)
+
+    def begin():
+        ns.sync()
+        return time.perf_counter(), summed(), ns.launches()
+
+    def record(step, start, watch, since, nbytes, **kw):
+        ns.sync()
+        t0, c0, k0 = start
+        sec = time.perf_counter() - t0
+        c1, k1 = summed(), ns.launches()
+        d = {key: c1[key] - c0[key] for key in CLUSTER_COUNTERS}
+        rec = {"step": step, "wall_s": sec,
+               "client_gib_s": nbytes / sec / 2**30,
+               "kernel_launches": {k: k1[k] - k0.get(k, 0) for k in k1
+                                   if k1[k] != k0.get(k, 0)},
+               "launch_s": (d.pop("ec_encode_launch_us")
+                            + d.pop("ec_decode_launch_us")) / 1e6,
+               **d, "epochs": watch.spread(since), **kw}
+        rec["launch_share"] = rec["launch_s"] / sec
+        steps[step] = rec
+        note(f"[cluster] {json.dumps(rec)}")
+        return rec
+
+    async def write_all(io, datas):
+        await asyncio.gather(*(io.write_full(o, d) for o, d in datas.items()))
+
+    async def read_all(io, datas, what):
+        got = await asyncio.gather(*(io.read(o) for o in datas))
+        bad = [o for o, g in zip(datas, got) if g != datas[o]]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} objects differ "
+                                 f"({bad[:4]})")
+
+    async def command(rados, prefix, **kw):
+        r = await rados.mon_command(prefix, timeout=CLUSTER_WAIT_S, **kw)
+        if r["rc"] != 0:
+            raise AssertionError(f"{prefix}: {r}")
+        return r
+
+    async def active(pool_id):
+        """Each PG of the pool is active on its primary."""
+        pg_num = rados.monc.osdmap.pools[pool_id].pg_num
+        return sum(1 for o in cluster.osds.values()
+                   for pgid, pg in o.pgs.items()
+                   if pgid.pool == pool_id and pg.is_primary
+                   and pg.state == "active") == pg_num
+
+    async def profile_and_tries(rados):
+        """The 8+4 profile, and the map's CRUSH with Ceph's EC-rule choose
+        tries (the mon's rules carry no set_choose_tries step)."""
+        m = rados.monc.osdmap
+        text = ns.compiler.decompile(m.crush)
+        tunable = "tunable choose_total_tries 50\n"
+        if tunable not in text:
+            raise AssertionError("the map's choose_total_tries is not 50")
+        await command(rados, "osd setcrushmap", map=text.replace(
+            tunable, f"tunable choose_total_tries {MAP_CHOOSE_TRIES}\n"))
+        await command(rados, "osd erasure-code-profile set", name="ec84",
+                      profile=dict(CLUSTER_PROFILE))
+
+    async def pool(rados, name, pgs):
+        pool_id = await rados.pool_create(
+            name, pool_type="erasure", erasure_code_profile="ec84",
+            pg_num=pgs)
+        await until(lambda: active(pool_id), f"active PGs of {name}")
+        m = rados.monc.osdmap
+        holes = sum(1 for ps in range(pgs)
+                    if len([o for o in m.pg_to_up_acting(pool_id, ps)[2]
+                            if o >= 0]) != k_plus_m)
+        return await rados.open_ioctx(name), holes
+
+    t_phase = time.perf_counter()
+    victim = CLUSTER_VICTIM
+    ns.reset_local_namespace()
+    cluster = ns.DevCluster(
+        n_mons=CLUSTER_MONS, n_osds=CLUSTER_OSDS, osds_per_host=1,
+        store_dir=f"{store_dir}/durable",
+        overrides={**liveness, "mon_osd_down_out_interval": 300.0})
+    watch = _EpochWatch()
+    rados = None
+    try:
+        t0 = time.perf_counter()
+        await cluster.start()
+        adopt(cluster, watch)
+        rados = await cluster.client()
+        boot_epoch = rados.monc.osdmap.epoch
+        steps["boot"] = {"step": "boot", "wall_s": time.perf_counter() - t0,
+                         "mons": len(cluster.mons),
+                         "osds": len(cluster.osds), "epoch": boot_epoch}
+        note(f"[cluster] {json.dumps(steps['boot'])}")
+        await profile_and_tries(rados)
+
+        # 1. coalesce
+        since = rados.monc.osdmap.epoch
+        io, holes = await pool(rados, "coal", 1)
+        datas = {f"coal-{i}": rng.bytes(object_bytes)
+                 for i in range(objects)}
+        start = begin()
+        await write_all(io, datas)
+        w_s = time.perf_counter() - start[0]
+        await read_all(io, datas, "coalesce read-back")
+        rec = record("coalesce", start, watch, since,
+                     2 * objects * object_bytes, write_s=w_s,
+                     write_gib_s=objects * object_bytes / w_s / 2**30,
+                     holes=holes)
+        if rec["ec_coalesce_ops"] < objects:
+            raise AssertionError(f"the coalescer saw {rec['ec_coalesce_ops']}"
+                                 f" ops of {objects}")
+        # fewer launches than ops: 4 MiB ops reach the primary's backend
+        # one event-loop pass apart, and the coalescer flushes as soon as
+        # every op in flight is parked (tier1.sh's ops / 4 holds for 4 KiB
+        # ops, not here: PERF.md §6)
+        if not rec["ec_coalesce_launches"] < rec["ec_coalesce_ops"]:
+            raise AssertionError(
+                f"no coalescing: {rec['ec_coalesce_launches']} "
+                f"launches for {rec['ec_coalesce_ops']} ops")
+
+        # 2. repair
+        since = rados.monc.osdmap.epoch
+        t0 = time.perf_counter()
+        io, holes = await pool(rados, "ec", pg_num)
+        pool_s = time.perf_counter() - t0
+        datas = {f"ec-{i}": rng.bytes(object_bytes) for i in range(objects)}
+        start = begin()
+        await write_all(io, datas)
+        w_s = time.perf_counter() - start[0]
+        await cluster.kill_osd(victim)
+        await command(rados, "osd down", ids=[victim])
+
+        async def victim_down():
+            return not rados.monc.osdmap.is_up(victim)
+
+        await until(victim_down, f"epoch with osd.{victim} down")
+        # into one PG: the batched engine rebuilds a lost shard position
+        # for two or more objects of a PG at once, fewer fall to the
+        # per-object path
+        more = {nm: rng.bytes(object_bytes) for nm in pg_object_names(
+            ns.object_to_ps, CLUSTER_DEGRADED_PG, degraded, seed, pg_num)}
+        await write_all(io, more)
+        datas.update(more)
+        t0 = time.perf_counter()
+        await read_all(io, datas, "degraded read")
+        degraded_read_s = time.perf_counter() - t0
+        await cluster.revive_osd(victim)
+        adopt(cluster, watch)
+        await cluster.wait_health_ok(timeout=CLUSTER_WAIT_S)
+        repair = {}
+
+        async def repaired():
+            repair.clear()
+            for osd_id in cluster.osds:
+                stats = await rados.osd_daemon_command(
+                    osd_id, "ec_repair_stats", timeout=CLUSTER_WAIT_S)
+                eng = stats.get("engine", {})
+                for key in ("batches", "objects"):
+                    repair[key] = repair.get(key, 0) + eng.get(key, 0)
+            return repair["batches"] > 0
+
+        await until(repaired, "batched repair")
+
+        async def clean():
+            return pgs_clean(cluster.osds.values())
+
+        await until(clean, "clean PGs after the repair")
+        await repaired()
+        await read_all(io, datas, "read-back after repair")
+        downs = sorted({o for inc in
+                        cluster.mons[next(iter(cluster.mons))]
+                        .osd_monitor.incrementals_since(boot_epoch)
+                        for o in inc["new_down"]})
+        if downs != [victim]:
+            raise AssertionError(f"OSDs marked down {downs}, only osd."
+                                 f"{victim} may be")
+        record("repair", start, watch, since,
+               (2 * objects + 2 * degraded) * object_bytes, write_s=w_s,
+               write_gib_s=objects * object_bytes / w_s / 2**30,
+               pool_s=pool_s, degraded_read_s=degraded_read_s,
+               holes=holes, victim=victim, marked_down=downs,
+               repair_batches=repair["batches"],
+               repair_objects=repair["objects"])
+    finally:
+        if rados is not None:
+            await rados.shutdown()
+        await cluster.stop()
+        ns.reset_local_namespace()
+
+    # 3. resident
+    cluster = ns.DevCluster(
+        n_mons=1, n_osds=CLUSTER_OSDS, osds_per_host=1,
+        overrides={**liveness, "mon_osd_down_out_interval": 300.0,
+                   "osd_ec_resident": True,
+                   "osd_scrub_interval": CLUSTER_SCRUB_INTERVAL_S})
+    watch = _EpochWatch()
+    rados = None
+    try:
+        await cluster.start()
+        adopt(cluster, watch)
+        rados = await cluster.client()
+        await command(rados, "osd set", flag="noscrub")
+        await profile_and_tries(rados)
+        since = rados.monc.osdmap.epoch
+        io, holes = await pool(rados, "res", 1)
+        datas = {f"res-{i}": rng.bytes(resident_bytes)
+                 for i in range(objects)}
+        start = begin()
+        await write_all(io, datas)
+        w_s = time.perf_counter() - start[0]
+        warm = summed()
+        await read_all(io, datas, "resident read-back")
+        after = summed()
+        h2d = after["ec_resident_h2d_bytes"] - warm["ec_resident_h2d_bytes"]
+        hits = after["ec_resident_hits"] - warm["ec_resident_hits"]
+        entries = 0
+        for osd_id in cluster.osds:
+            stats = await rados.osd_daemon_command(
+                osd_id, "ec_resident_stats", timeout=CLUSTER_WAIT_S)
+            entries += stats.get("cache", {}).get("entries", 0)
+        record("resident", start, watch, since,
+               2 * objects * resident_bytes, write_s=w_s,
+               write_gib_s=objects * resident_bytes / w_s / 2**30,
+               holes=holes, warm_h2d_bytes=h2d, warm_hits=hits,
+               cached_shards=entries)
+        if h2d != 0:
+            raise AssertionError(f"warm reads moved {h2d} bytes to the "
+                                 f"device")
+        if hits < objects:
+            raise AssertionError(f"the resident cache barely hit: {hits}")
+        if entries <= 0:
+            raise AssertionError("no OSD reported cached resident shards")
+
+        # the background deep scrub, held off so far: one batched sweep of
+        # the pool's PG, its CRC by the device (64 KiB shard streams)
+        since = rados.monc.osdmap.epoch
+        start = begin()
+        await command(rados, "osd unset", flag="noscrub")
+        scrub = {}
+
+        async def swept():
+            scrub.clear()
+            for osd_id in cluster.osds:
+                stats = await rados.osd_daemon_command(
+                    osd_id, "ec_scrub_stats", timeout=CLUSTER_WAIT_S)
+                for key in ("sweeps", "objects", "errors"):
+                    scrub[key] = scrub.get(key, 0) + \
+                        stats["engine"].get(key, 0)
+            return scrub["objects"] >= objects
+
+        await until(swept, "background scrub sweep")
+        if scrub["errors"]:
+            raise AssertionError(f"the scrub found {scrub['errors']} errors")
+        record("scrub", start, watch, since, objects * resident_bytes,
+               sweeps=scrub["sweeps"], objects=scrub["objects"],
+               errors=scrub["errors"])
+    finally:
+        if rados is not None:
+            await rados.shutdown()
+        await cluster.stop()
+        ns.reset_local_namespace()
+    return {"steps": steps, "seconds": time.perf_counter() - t_phase}
+
+
+def cluster_phase(dev) -> dict:
+    """Wave (f) on the port's dev cluster, its OSD daemons on the CUDA
+    device ``dev``, under a temporary directory.  Counts the codecs built
+    meanwhile and their seconds, through the registry's ``factory``: a
+    daemon's one per primary EC PG at each peering, and a mon's two per
+    profile check."""
+    import asyncio
+    import functools
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from ceph_tpu_torch import vstart
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.msg import reset_local_namespace
+    from ceph_tpu_torch.osd.pg import object_to_ps
+    from ceph_tpu_torch.placement import compiler
+
+    ns = SimpleNamespace(
+        DevCluster=functools.partial(vstart.DevCluster, device=dev),
+        SCALE_TEST_OVERRIDES=vstart.SCALE_TEST_OVERRIDES,
+        reset_local_namespace=reset_local_namespace, compiler=compiler,
+        object_to_ps=object_to_ps, launches=lambda: dict(ck.LAUNCHES),
+        sync=torch.cuda.synchronize)
+    built = {"codecs": 0, "seconds": 0.0}
+    factory = ErasureCodePluginRegistry.factory
+
+    def counted(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return factory(self, *args, **kw)
+        finally:
+            built["codecs"] += 1
+            built["seconds"] += time.perf_counter() - t0
+
+    ErasureCodePluginRegistry.factory = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = asyncio.run(cluster_wave(ns, tmp))
+    finally:
+        ErasureCodePluginRegistry.factory = factory
+    log(f"[cluster] {json.dumps({'step': 'codecs', **built})}")
+    return {**out, "codecs": built}
 
 
 def osd_phase(dev, seed: int) -> dict:
@@ -2272,7 +2749,27 @@ def main() -> int:
     if osd["seconds"] > OSD_BUDGET_S:
         raise AssertionError(f"the OSD phase took {osd['seconds']:.1f} s")
 
-    # -- 7. result lines ------------------------------------------------------
+    # -- 7. the cluster, counted ---------------------------------------------
+    # Wave (f): twelve OSD daemons under three monitors serve the 8+4 pool
+    # (cluster_wave).  B1 carries the primaries' encodes, the degraded
+    # reads and the batched repair, B2 the resident pool's hinfo CRC.  The
+    # kernels were built in phase 1, so no daemon's loop waits on nvcc.
+    ck.reset_launch_counts()
+    cluster = cluster_phase(dev)
+    cluster_launches = counts()
+    log(f"[main path: cluster] launches {cluster_launches}; "
+        f"{len(cluster['steps'])} steps in {cluster['seconds']:.2f} s "
+        f"(budget {CLUSTER_BUDGET_S:.0f} s)")
+    for name in ("gf2_apply_words", "gf2_apply_u8"):
+        if cluster_launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"cluster main path")
+        main_launches[name] += cluster_launches[name]
+    if cluster["seconds"] > CLUSTER_BUDGET_S:
+        raise AssertionError(f"the cluster phase took "
+                             f"{cluster['seconds']:.1f} s")
+
+    # -- 8. result lines ------------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",

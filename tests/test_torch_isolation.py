@@ -2,6 +2,7 @@
 runs on the CPU only when asked to."""
 
 import ast
+import asyncio
 import os
 import pathlib
 import subprocess
@@ -298,6 +299,45 @@ asyncio.run(run())
 """ + CHECK
 
 
+# The OSD daemon and the dev cluster: a port DevCluster of one mon and three
+# OSD daemons on the CPU, an erasure pool written and read through the
+# daemons' sub-ops, an object class called, a RadosModel run verified.
+BLOCKED_CLUSTER_RUN = BLOCKER + r"""
+import asyncio
+import json
+import torch
+torch.cuda.is_available = lambda: False
+from ceph_tpu_torch.testing import RadosModel
+from ceph_tpu_torch.vstart import DevCluster
+
+async def run():
+    cluster = DevCluster(n_mons=1, n_osds=3, device="cpu")
+    await cluster.start()
+    rados = await cluster.client()
+    r = await rados.mon_command("osd erasure-code-profile set", name="p",
+                                profile={"plugin": "jax_rs", "k": "2",
+                                         "m": "1",
+                                         "crush-failure-domain": "osd"})
+    assert r["rc"] == 0, r
+    await rados.pool_create("ec", pool_type="erasure",
+                            erasure_code_profile="p", pg_num=4)
+    io = await rados.open_ioctx("ec")
+    await io.write_full("o", bytes(range(256)) * 40)
+    assert await io.read("o") == bytes(range(256)) * 40
+    await rados.pool_create("meta", pg_num=4)
+    meta = await rados.open_ioctx("meta")
+    await meta.write_full("v", b"x")
+    assert json.loads(await meta.exec("v", "version", "inc")) == 1
+    model = RadosModel(io, seed=1, n_objects=4, max_size=4096, ec=True)
+    await model.run(20)
+    assert await model.verify_all() == len(model.model)
+    await rados.shutdown()
+    await cluster.stop()
+
+asyncio.run(run())
+""" + CHECK
+
+
 def _run_blocked(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -334,6 +374,10 @@ def test_mon_and_client_run_with_jax_and_ceph_tpu_blocked():
     """The mon validates profiles on the CPU whether or not a card is
     there: with CUDA reported absent the erasure pool is still created."""
     _run_blocked(BLOCKED_MON_RUN)
+
+
+def test_daemon_and_dev_cluster_run_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_CLUSTER_RUN)
 
 
 def test_native_library_builds_from_the_ports_sources_only():
@@ -430,6 +474,89 @@ def test_ec_backend_over_a_codec_without_device_raises_without_cuda(
         torch.device("cpu")
 
 
+def test_osd_daemon_without_device_raises_without_cuda(monkeypatch):
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monmap = {"a": "local://mon.a"}
+    with pytest.raises(RuntimeError):
+        OSDDaemon(0, monmap)
+    assert OSDDaemon(0, monmap, device="cpu").device == torch.device("cpu")
+
+
+def test_dev_cluster_start_without_device_raises_without_cuda(monkeypatch):
+    from ceph_tpu_torch.msg import reset_local_namespace
+    from ceph_tpu_torch.vstart import DevCluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    async def run():
+        cluster = DevCluster(n_mons=1, n_osds=1)
+        try:
+            with pytest.raises(RuntimeError):
+                await cluster.start()
+            assert cluster.mons and not cluster.osds
+        finally:
+            await cluster.stop()
+
+    reset_local_namespace()
+    try:
+        asyncio.run(run())
+    finally:
+        reset_local_namespace()
+
+
+def test_osd_daemon_mesh_planes_raise_naming_a10():
+    """``osd_ec_mesh_cs`` and ``osd_ec_mesh_coalesce`` (and the sharded
+    resident cache behind the latter) are the multi-device plane."""
+    from ceph_tpu_torch.common.config import ConfigProxy
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+
+    def daemon(**conf):
+        return OSDDaemon(0, {"a": "local://mon.a"},
+                         ConfigProxy(overrides=conf), device="cpu")
+
+    with pytest.raises(NotImplementedError, match="A10"):
+        daemon(osd_ec_mesh_cs=2)._ec_mesh()
+    coalesced = daemon(osd_ec_mesh_coalesce=True)
+    with pytest.raises(NotImplementedError, match="A10"):
+        coalesced._host_coalescer()
+    with pytest.raises(NotImplementedError, match="A10"):
+        coalesced._resident_cache()
+    plain = daemon()
+    assert plain._ec_mesh() is None and plain._host_coalescer() is None
+    assert plain._resident_cache().device == torch.device("cpu")
+
+
+def test_vstart_imports_no_mds_mgr_or_rgw():
+    """The dev cluster's MDS, manager and gateway starters import their
+    modules lazily (ROADMAP A12): importing vstart loads none of them, and
+    starting one raises ModuleNotFoundError."""
+    script = r"""
+import asyncio, sys
+import ceph_tpu_torch.vstart as vstart
+later = ("ceph_tpu_torch.mds", "ceph_tpu_torch.services.mgr",
+         "ceph_tpu_torch.services.rgw", "ceph_tpu_torch.services.dashboard",
+         "ceph_tpu_torch.services.orchestrator")
+loaded = [m for m in sys.modules if m.startswith(later)]
+assert not loaded, loaded
+cluster = vstart.DevCluster(n_mons=1, n_osds=0, device="cpu")
+for start in (cluster.start_mds, cluster.start_mgr, cluster.start_rgw):
+    try:
+        asyncio.run(start())
+    except ModuleNotFoundError as e:
+        assert e.name.startswith(later), e.name
+    else:
+        raise SystemExit(f"{start.__name__} ran")
+print("vstart-ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "vstart-ok" in res.stdout
+
+
 def test_device_shard_cache_sharding_raises_naming_a10():
     from ceph_tpu_torch.store import DeviceShardCache
 
@@ -458,7 +585,8 @@ COPIED = [
     "placement/crush_map.py", "placement/bulk.py", "placement/mapping.py",
     "placement/compiler.py", "placement/tester.py", "osd/codes.py",
     "osd/osd_map.py", "osd/pg.py", "osd/scheduler.py", "osd/op_tracker.py",
-    "osd/snaps.py", "osd/hitset.py",
+    "osd/snaps.py", "osd/hitset.py", "common/perf_collect.py",
+    "services/cls.py", "testing/rados_model.py", "testing/thrasher.py",
 ]
 COPIED_EARLIER = [
     "common/admin_socket.py", "common/backoff.py", "common/cache.py",
@@ -575,3 +703,114 @@ def test_lazy_imports_name_the_port(rel, names):
             if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
             for node in ast.walk(fn) if isinstance(node, ast.ImportFrom)}
     assert lazy == names
+
+
+class _DropDeviceDepartures(_Normalise):
+    """The port's departures in osd/daemon.py and vstart.py taken out: the
+    ``device`` parameter of ``cls``'s ``__init__``, its one assignment to
+    ``self.device``, the ``device=self.device`` keywords that pass it on,
+    the import of ``resolve_device``, and ``cuda_kernels`` where the
+    reference names ``pallas_kernels``.  Each is counted."""
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.dropped = {"param": 0, "assign": 0, "keyword": 0, "import": 0,
+                        "variant": 0}
+
+    def visit_ClassDef(self, node):
+        if node.name == self.cls:
+            for fn in node.body:
+                if isinstance(fn, ast.FunctionDef) and \
+                        fn.name == "__init__":
+                    args = fn.args
+                    names = [a.arg for a in args.args]
+                    if "device" in names:
+                        i = names.index("device")
+                        d = i - (len(args.args) - len(args.defaults))
+                        del args.args[i], args.defaults[d]
+                        self.dropped["param"] += 1
+                    keep = [st for st in fn.body if not (
+                        isinstance(st, ast.Assign)
+                        and ast.unparse(st.targets[0]) == "self.device")]
+                    self.dropped["assign"] += len(fn.body) - len(keep)
+                    fn.body = keep
+        return self._strip(node)
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        keep = [kw for kw in node.keywords if not (
+            kw.arg == "device" and ast.unparse(kw.value) == "self.device")]
+        self.dropped["keyword"] += len(node.keywords) - len(keep)
+        node.keywords = keep
+        return node
+
+    def visit_ImportFrom(self, node):
+        if node.module == "ceph_tpu_torch.ec.engine" and \
+                [a.name for a in node.names] == ["resolve_device"]:
+            self.dropped["import"] += 1
+            return None
+        for alias in node.names:
+            if alias.name == "cuda_kernels":
+                alias.name = "pallas_kernels"
+                self.dropped["variant"] += 1
+        return super().visit_ImportFrom(node)
+
+    def visit_Name(self, node):
+        if node.id == "cuda_kernels":
+            node.id = "pallas_kernels"
+            self.dropped["variant"] += 1
+        return node
+
+
+def _is_a10_raise(node) -> bool:
+    return (isinstance(node, ast.Raise)
+            and "ROADMAP A10" in ast.unparse(node.exc))
+
+
+def _graft_a10_raises(port, ref) -> list:
+    """Where a statement list of the port ends in a ``raise`` naming A10,
+    put that raise in place of the reference's statements from the same
+    position on (the multi-device code the port leaves for A10); return
+    the names of the functions so grafted."""
+    grafted = []
+
+    def walk(pbody, rbody, fn):
+        for i, (ps, rs) in enumerate(zip(pbody, rbody)):
+            if _is_a10_raise(ps) and i == len(pbody) - 1:
+                rbody[i:] = [ps]
+                grafted.append(fn)
+                return
+            if type(ps) is not type(rs):
+                continue
+            name = getattr(ps, "name", fn) if isinstance(
+                ps, (ast.FunctionDef, ast.AsyncFunctionDef,
+                     ast.ClassDef)) else fn
+            for field in ("body", "orelse", "finalbody"):
+                if isinstance(getattr(ps, field, None), list):
+                    walk(getattr(ps, field), getattr(rs, field), name)
+
+    walk(port.body, ref.body, None)
+    return grafted
+
+
+@pytest.mark.parametrize("rel,cls,dropped,grafted", [
+    ("osd/daemon.py", "OSDDaemon",
+     {"param": 1, "assign": 1, "keyword": 2, "import": 1, "variant": 2},
+     ["_resident_cache", "_ec_mesh", "_host_coalescer"]),
+    ("vstart.py", "DevCluster",
+     {"param": 1, "assign": 1, "keyword": 1, "import": 0, "variant": 0}, []),
+])
+def test_daemon_and_vstart_equal_their_references_but_for_the_device(
+        rel, cls, dropped, grafted):
+    """osd/daemon.py and vstart.py are their references but for the
+    departures ROADMAP Queue C lists: the ``device`` keyword and its uses,
+    the encode variant set through ``cuda_kernels``, and the daemon's three
+    multi-device branches raising NotImplementedError naming A10."""
+    drop = _DropDeviceDepartures(cls)
+    port = drop.visit(ast.parse((REPO / "ceph_tpu_torch" / rel).read_text()))
+    ref = _Normalise().visit(ast.parse((REPO / "ceph_tpu" / rel).read_text()))
+    assert drop.dropped == dropped
+    assert _graft_a10_raises(port, ref) == grafted
+    assert ast.dump(port) == ast.dump(ref)
+    assert _normalised(REPO / "ceph_tpu_torch" / rel) != \
+        _normalised(REPO / "ceph_tpu" / rel)
