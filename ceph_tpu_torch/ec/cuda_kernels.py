@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -92,12 +93,17 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def count_launch(counts: dict, name: str) -> None:
     """Add one launch of ``name``'s kernel to ``counts``, unless the call
     was recorded into a CUDA graph being captured: that launches nothing
-    until the graph replays."""
+    until the graph replays.  Under a lock: the mesh planes launch from
+    worker threads beside the event loop's."""
     if not torch.cuda.is_current_stream_capturing():
-        counts[name] += 1
+        with _COUNT_LOCK:
+            counts[name] += 1
 
 
 # -- encode-variant selection -------------------------------------------------

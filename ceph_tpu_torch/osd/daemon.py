@@ -6,7 +6,8 @@ names the device of every primary PG's codec and of the resident shard
 cache (None means CUDA, raising when there is none; ``"cpu"`` only when
 asked for); the encode variant is set through ``ec.cuda_kernels``; and the
 multi-device data planes (``osd_ec_mesh_cs``, ``osd_ec_mesh_coalesce``, a
-sharded resident cache) raise NotImplementedError until ROADMAP A10.
+sharded resident cache) take the device pool from
+``parallel.mesh.local_devices(device)`` in place of ``jax.devices()``.
 
 The role of reference src/osd/OSD.{h,cc} + PrimaryLogPG.cc in one async
 daemon: boot registers with the monitor (OSD::init, OSD.cc:3283 ->
@@ -495,9 +496,10 @@ class OSDDaemon:
             sharding = None
             co = self._host_coalescer()
             if co is not None and co.total > 1:
-                raise NotImplementedError(
-                    "a sharded resident cache is the multi-device plane "
-                    "(ROADMAP A10), not ported yet")
+                from ceph_tpu_torch.parallel.mesh import (NamedSharding,
+                                                          PartitionSpec)
+                sharding = NamedSharding(
+                    co.mesh(), PartitionSpec(("dp", "cs")))
             self._resident_cache_obj = DeviceShardCache(
                 max_bytes=int(self.conf["osd_ec_resident_max_bytes"]),
                 perf=self.perf,
@@ -1803,30 +1805,46 @@ class OSDDaemon:
 
     def _ec_mesh(self):
         """Distributed EC data-plane mesh (osd_ec_mesh_cs > 0): one
-        ('dp','cs') mesh over all local jax devices, built once per
+        ('dp','cs') mesh over all local devices, built once per
         process (OSDs in one process share the devices).  Invalid
         geometry degrades to the single-device plane with a warning —
         a config typo must not keep PGs from going active."""
         cs = int(self.conf["osd_ec_mesh_cs"])
         if cs <= 0:
             return None
-        raise NotImplementedError(
-            "osd_ec_mesh_cs is the multi-device plane (ROADMAP A10), "
-            "not ported yet")
+        mesh = _EC_MESH_CACHE.get(cs)
+        if mesh is None:
+            from ceph_tpu_torch.parallel.mesh import local_devices
+
+            from ceph_tpu_torch.parallel.ec_sharding import make_ec_mesh
+
+            devs = local_devices(device=self.device)
+            if len(devs) < cs or len(devs) % cs:
+                log.derr("osd.%d: osd_ec_mesh_cs=%d does not divide "
+                         "the %d local devices; using single-device "
+                         "EC", self.osd_id, cs, len(devs))
+                return None
+            mesh = make_ec_mesh(devs, cs=cs)
+            _EC_MESH_CACHE[cs] = mesh
+        return mesh
 
     def _host_coalescer(self):
         """Host-level mesh coalescer (osd_ec_mesh_coalesce): ONE
         launcher per process shared by every co-located OSD's EC
         backends, flushing each micro-window as a single sharded
-        launch over all local jax devices.  Window/stripe caps reuse
+        launch over all local devices.  Window/stripe caps reuse
         the per-OSD coalescer options (they are host policy here —
         first OSD up wins, which is fine for a vstart host with one
         conf)."""
         if not bool(self.conf["osd_ec_mesh_coalesce"]):
             return None
-        raise NotImplementedError(
-            "osd_ec_mesh_coalesce is the multi-device plane (ROADMAP A10), "
-            "not ported yet")
+        from ceph_tpu_torch.osd.mesh_coalesce import host_coalescer
+
+        return host_coalescer(
+            window_us=float(self.conf["osd_ec_coalesce_window_us"]),
+            max_stripes=int(self.conf["osd_ec_coalesce_max_stripes"]),
+            device=self.device,
+        )
 
     def _make_backend(self, pg: PG) -> None:
         if not pg.is_primary:

@@ -28,8 +28,10 @@ Counterpart of ceph_tpu/osd/ec_backend.py on one torch device: the
 backend runs on its codec's device (``codec.device``), and "device data"
 is a ``torch.Tensor`` there (a CPU tensor included, so the CPU runs take
 the resident path and count the same bytes as the JAX package).  The
-multi-device planes (``mesh=``, ``mesh_coalescer=``) wait for ROADMAP
-A10: anything but None raises.
+multi-device planes (``mesh=``, ``mesh_coalescer=``) run over the port's
+mesh (``parallel.mesh``): a ``ShardedApplier`` per matrix, the host
+``MeshCoalescer`` (osd/mesh_coalesce.py) and the sharded CLAY/LRC
+repairs.
 """
 
 from __future__ import annotations
@@ -520,15 +522,15 @@ class ECBackend:
         shard id -> ShardIO for all k+m positions. ``log_hook(oid, op,
         obj_version, prior_version)`` (daemon-provided) allocates the PG
         log entry that rides every shard mutation; None = no logging
-        (standalone/library use).  ``mesh`` and ``mesh_coalescer``, the
-        JAX backend's multi-device data planes, must be None: they wait
-        for the port's multi-device planes (ROADMAP A10).  Every launch
-        runs on the codec's device (``codec.device``; a codec without one
-        means CUDA, raising when there is none)."""
-        if mesh is not None or mesh_coalescer is not None:
-            raise NotImplementedError(
-                "ECBackend mesh planes (mesh=, mesh_coalescer=) are the "
-                "multi-device plane (ROADMAP A10), not ported yet")
+        (standalone/library use).  ``mesh``: an optional
+        ``parallel.mesh.Mesh`` with ('dp', 'cs') axes — when given and the
+        codec is a generator-matrix code, encode/decode batches run the
+        distributed data plane (parallel/ec_sharding.ShardedApplier)
+        instead of the single-device codec path, bit-identically (the
+        multi-chip analog of the per-shard sub-op fan-out,
+        reference osd/ECBackend.cc:2090-2106,2364).  Every single-device
+        launch runs on the codec's device (``codec.device``; a codec
+        without one means CUDA, raising when there is none)."""
         self.ec = codec
         self.device = resolve_device(getattr(codec, "device", None))
         self.k = codec.get_data_chunk_count()
@@ -568,16 +570,23 @@ class ECBackend:
         # serve corrupt ranges (version granularity is the object, not
         # the stripe)
         self._dirty: dict[str, set[int]] = {}
-        # the multi-device planes are absent (ROADMAP A10): every batch
-        # takes the single-device plane, and the plane counters the
-        # daemon's "ec mesh stats" reads stay 0
-        self.mesh = None
-        self.mesh_co = None
-        self._mesh_dec_ok = False
-        # observability (tests and perf counters read these):
-        # *_buckets record the DISTINCT padded batch dims launched — the
-        # pow2 shape-bucketing bound on launch shapes is asserted
-        # against them
+        # distributed data plane: generator-matrix codecs only (dense
+        # device codecs expose .generator + encode_words_device; the
+        # orchestration plugins — lrc/shec/clay — keep their own
+        # layered paths)
+        gen = getattr(codec, "generator", None)
+        self.mesh = mesh if (
+            mesh is not None and gen is not None
+            and hasattr(codec, "encode_words_device")
+        ) else None
+        self._mesh_gen = np.asarray(gen, np.uint8) \
+            if self.mesh is not None else None
+        self._mesh_appliers: dict[tuple, object] = {}
+        self._mesh_enc_applier = None   # pinned write-path encoder
+        # observability: proves which plane served a batch (tests and
+        # perf counters read these).  *_buckets record the DISTINCT
+        # padded batch dims launched — the pow2 shape-bucketing bound on
+        # launch shapes is asserted against them.
         self.mesh_stats = {"encodes": 0, "decodes": 0, "repairs": 0,
                            "encode_buckets": set(),
                            "decode_buckets": set()}
@@ -604,8 +613,7 @@ class ECBackend:
         # ec_launch_bytes: logical bytes fed into device launches (the
         # numerator of achieved-GiB/s: ec_launch_bytes delta over
         # encode+decode launch-us delta — the utilization telemetry's
-        # HBM-roofline-% input).  The ec_mesh_* counters stay registered
-        # (at zero) so a dump has the JAX backend's counter set.
+        # HBM-roofline-% input)
         for _k in ("hedge_issued", "hedge_won", "hedge_lost",
                    "hedge_meta",
                    "ec_coalesce_launches", "ec_coalesce_ops",
@@ -627,7 +635,9 @@ class ECBackend:
         # device residency (opt-in): keep shard streams on device in a
         # DeviceShardCache (on the codec's device) so repeated ops feed
         # the kernel without host round-trips.  Requires a codec with
-        # device-array entry points.  The transfer counters are
+        # device-array entry points and is mutually exclusive with the
+        # mesh plane (the sharded applier owns its own placement).  The
+        # transfer counters are
         # registered unconditionally — the non-resident paths account
         # their modeled host<->device traffic under the same names, so
         # cfg7's A/B reads one counter pair either way.
@@ -643,6 +653,7 @@ class ECBackend:
         self.resident_ns = resident_ns
         self.resident_writeback = False
         if resident is not None and resident is not False \
+                and self.mesh is None \
                 and hasattr(codec, "encode_chunks_device") \
                 and hasattr(codec, "decode_chunks_device"):
             self.resident = resident if isinstance(
@@ -665,6 +676,21 @@ class ECBackend:
             self, window_us=coalesce_window_us,
             max_stripes=coalesce_max_stripes,
         ) if coalesce else None
+        # host-level mesh coalescer (osd/mesh_coalesce.py): parked ops
+        # from EVERY co-located OSD's backend share one sharded launch
+        # over the device mesh.  register() refuses 1-device pools and
+        # codecs without a dense generator — those keep the per-backend
+        # launcher above (graceful degradation).  Decode joins only when
+        # the codec exposes decode_selection (shec encodes sharded but
+        # decodes per backend).  The host handle is kept even when
+        # sharded launches are refused: the clay/lrc sub-chunk repair
+        # meshes hang off it.
+        self._mesh_host = mesh_coalescer
+        self.mesh_co = None
+        self._mesh_dec_ok = False
+        if mesh_coalescer is not None and mesh_coalescer.register(self):
+            self.mesh_co = mesh_coalescer
+            self._mesh_dec_ok = mesh_coalescer.supports_decode(self)
 
     def _lock(self, oid: str):
         """Per-object write lock, refcounted so the table doesn't grow
@@ -707,6 +733,43 @@ class ECBackend:
         external coordinators serialize against mutations with this)."""
         return self._lock(oid)
 
+    # -- codec dispatch (single-device vs distributed mesh plane) ---------
+    _MESH_APPLIER_CAP = 64
+
+    def _mesh_applier(self, key: tuple, coeff_fn):
+        """Bounded applier cache (LRU): each entry pins per-slot kernel
+        constants, and survivor/lost combinations are combinatorial in a
+        long-lived OSD.  The ``('enc',)`` write-path encoder is PINNED
+        outside the bounded table — a burst of 64 distinct decode combos
+        (a wide failure) must not evict the encoder into a rebuild on
+        every subsequent write.  ``coeff_fn`` builds the coefficient
+        matrix only on a miss — steady-state degraded reads are
+        matrix-math-free."""
+        if key == ("enc",):
+            ap = self._mesh_enc_applier
+            if ap is None:
+                from ceph_tpu_torch.parallel.ec_sharding import \
+                    ShardedApplier
+
+                ap = ShardedApplier(self.mesh, coeff_fn())
+                self._mesh_enc_applier = ap
+            return ap
+        ap = self._mesh_appliers.get(key)
+        if ap is None:
+            from ceph_tpu_torch.parallel.ec_sharding import ShardedApplier
+
+            while len(self._mesh_appliers) >= self._MESH_APPLIER_CAP:
+                self._mesh_appliers.pop(
+                    next(iter(self._mesh_appliers)))
+            ap = ShardedApplier(self.mesh, coeff_fn())
+            self._mesh_appliers[key] = ap
+        else:
+            # LRU, not FIFO: re-insert on hit so the eviction scan's
+            # first key is always the least-recently-used entry
+            self._mesh_appliers.pop(key)
+            self._mesh_appliers[key] = ap
+        return ap
+
     # -- host<->device boundary ------------------------------------------
     #
     # Both data-path flavors account the logical bytes that cross the
@@ -748,9 +811,11 @@ class ECBackend:
         return torch.zeros(n, dtype=torch.uint8, device=self.device)
 
     async def _encode_batch(self, stripes) -> np.ndarray:
-        """(B, k, C) -> (B, k+m, C) through the codec.  A device-resident
-        batch (tensor in) encodes through the codec's device entry point
-        and stays on device.
+        """(B, k, C) -> (B, k+m, C), through the mesh plane when one is
+        configured (parity = sharded generator apply; data rows pass
+        through, so the result is bit-identical to the codec path).
+        A device-resident batch (tensor in) encodes through the codec's
+        device entry point and stays on device.
 
         The batch dim is shape-bucketed: B pads up to a power of two
         (zero stripes; rows are independent, result sliced back), as the
@@ -783,6 +848,19 @@ class ECBackend:
         self.perf.inc("ec_launch_bytes", in_bytes)
         self.perf.inc("ec_resident_h2d_bytes", in_bytes)
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            ap = self._mesh_applier(
+                ("enc",), lambda: self._mesh_gen[self.k:])
+            parity = await asyncio.to_thread(ap, stripes)
+            self.mesh_stats["encodes"] += 1
+            dt_us = (time.perf_counter() - t0) * 1e6
+            self.perf.hinc("ec_encode_launch_us", dt_us)
+            self.profiler.record(f"{self.codec_sig}:enc", dt_us,
+                                 stripes=b, hbm_bytes=in_bytes)
+            out = np.concatenate(
+                [np.asarray(stripes, np.uint8), parity], axis=1)[:b]
+            self.perf.inc("ec_resident_d2h_bytes", out.nbytes)
+            return out
         out = np.asarray(await asyncio.to_thread(
             self.ec.encode_chunks_batch, stripes
         ))[:b]
@@ -794,9 +872,11 @@ class ECBackend:
         return out
 
     async def _decode_batch(self, batched: dict, missing: list) -> dict:
-        """Batched reconstruct through the codec (survivor selection is
-        the codec's decode_chunks_batch: sorted available, first k).
-        Batch dim shape-bucketed like _encode_batch."""
+        """Batched reconstruct through the mesh plane when configured.
+        Survivor selection mirrors the codec's decode_chunks_batch
+        (sorted available, first k) so both planes build the same
+        decode matrix — bit-identity by construction.  Batch dim
+        shape-bucketed like _encode_batch."""
         missing = [int(w) for w in missing]
         if self.resident is not None and any(
                 self._is_device(c) for c in batched.values()):
@@ -819,6 +899,33 @@ class ECBackend:
         self.perf.inc("ec_launch_bytes", in_bytes)
         self.perf.inc("ec_resident_h2d_bytes", in_bytes)
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            avail = {int(i): np.asarray(c, np.uint8)
+                     for i, c in batched.items()}
+            todo = [w for w in missing if w not in avail]
+            out = {w: avail[w][:b] for w in missing if w in avail}
+            if todo:
+                if len(avail) < self.k:
+                    raise IOError(f"cannot decode {todo}")
+                # survivor choice + decode matrix come from the ONE
+                # shared definition (codec.decode_selection, itself
+                # FIFO-cached) so the two planes cannot drift apart
+                survivors, D = self.ec.decode_selection(avail, todo)
+                ap = self._mesh_applier(
+                    ("dec", survivors, tuple(todo)), lambda: D)
+                stacked = np.stack([avail[s] for s in survivors],
+                                   axis=1)
+                rebuilt = await asyncio.to_thread(ap, stacked)
+                for i, w in enumerate(todo):
+                    out[w] = np.asarray(rebuilt[:b, i])
+                    self.perf.inc("ec_resident_d2h_bytes",
+                                  out[w].nbytes)
+                self.mesh_stats["decodes"] += 1
+            dt_us = (time.perf_counter() - t0) * 1e6
+            self.perf.hinc("ec_decode_launch_us", dt_us)
+            self.profiler.record(f"{self.codec_sig}:dec", dt_us,
+                                 stripes=b, hbm_bytes=in_bytes)
+            return out
         out = await asyncio.to_thread(
             self.ec.decode_chunks_batch, batched, missing
         )
@@ -881,7 +988,7 @@ class ECBackend:
         stay on device end to end."""
         if not self._is_device(stripes):
             stripes = np.asarray(stripes, np.uint8)
-        if self.coalescer is None:
+        if self.coalescer is None and self.mesh_co is None:
             return await self._encode_batch(stripes)
         if stripes.ndim != 3 or stripes.shape[1] != self.k \
                 or stripes.shape[2] != self.sinfo.chunk_size:
@@ -889,6 +996,11 @@ class ECBackend:
                 f"encode batch shape {stripes.shape} != "
                 f"(B, {self.k}, {self.sinfo.chunk_size})"
             )
+        if self.mesh_co is not None:
+            # host-wide launcher: batchmates may come from OTHER OSDs'
+            # backends, and the launch shards over the whole mesh
+            return await self.mesh_co.submit(
+                self, ("enc",), stripes, stripes.shape[0])
         return await self.coalescer.submit(
             ("enc",), stripes, stripes.shape[0])
 
@@ -898,7 +1010,7 @@ class ECBackend:
         by (available shards, decode targets): only ops with the SAME
         failure pattern share a launch — and hence a decode matrix."""
         missing = [int(w) for w in missing]
-        if self.coalescer is None:
+        if self.coalescer is None and self._mesh_host is None:
             return await self._decode_batch(batched, missing)
         avail = {
             int(s): c if self._is_device(c) else np.asarray(c, np.uint8)
@@ -914,7 +1026,18 @@ class ECBackend:
                 f"not uniform (B, {self.sinfo.chunk_size})"
             )
         b = bs.pop()
+        if self._mesh_host is not None:
+            # cross-chip sub-chunk repair: a single-chunk degraded read
+            # on a clay/lrc codec moves only helper planes / group
+            # chunks over the interconnect, not whole survivor chunks
+            rep = await self._mesh_subchunk_repair(avail, missing)
+            if rep is not None:
+                return rep
         key = ("dec", tuple(sorted(avail)), tuple(missing))
+        if self.mesh_co is not None and self._mesh_dec_ok:
+            return await self.mesh_co.submit(self, key, avail, b)
+        if self.coalescer is None:
+            return await self._decode_batch(avail, missing)
         return await self.coalescer.submit(key, avail, b)
 
     async def _coalesce_launch(self, key: tuple, payloads: list):
@@ -972,6 +1095,107 @@ class ECBackend:
             off += sz
         return res
 
+    async def _mesh_subchunk_repair(self, avail: dict,
+                                    missing: list) -> dict | None:
+        """Single-chunk degraded read over the mesh, moving sub-chunks.
+
+        CLAY: the regenerating-code repair reads only 1/q of each of the
+        d helpers' bytes — parallel/clay_sharding extracts the repair
+        planes BEFORE its all_gather, so only those planes ride the
+        interconnect.  LRC: the lost chunk's local group repairs with a
+        group-local all_gather — other groups' chunks never move.  Both
+        operators are bit-identical to the plugin decode (their _check
+        probes gate the corpus), so a degraded read through here returns
+        the same bytes as the classic whole-chunk path.
+
+        Interconnect savings are counter-verified: ec_mesh_ici_bytes
+        accrues the modeled moved bytes, ec_mesh_ici_whole_bytes the
+        whole-chunk counterfactual (k full survivor chunks).
+
+        Returns None whenever the geometry doesn't fit — multi-chunk
+        loss, helpers unavailable, device-resident payloads, or a pool
+        the repair meshes can't tile — and the caller takes the classic
+        decode path (the JAX backend's own refusals, kept as they are)."""
+        ec = self.ec
+        is_clay = hasattr(ec, "sub_chunk_no") and hasattr(ec, "q")
+        is_lrc = hasattr(ec, "layers")
+        if not (is_clay or is_lrc):
+            return None
+        todo = [w for w in missing if w not in avail]
+        if len(todo) != 1:
+            return None
+        if any(self._is_device(c) for c in avail.values()):
+            return None
+        lost = todo[0]
+        b = next(iter(avail.values())).shape[0]
+        C = self.sinfo.chunk_size
+        try:
+            if is_clay:
+                if C % ec.sub_chunk_no:
+                    return None
+                mesh = self._mesh_host.clay_repair_mesh(self.n)
+                if mesh is None:
+                    return None
+                from ceph_tpu_torch.ec.repair_operator import \
+                    clay_repair_operator
+                from ceph_tpu_torch.parallel.clay_sharding import (
+                    clay_repair_ici_bytes, sharded_clay_repair)
+
+                _, helpers, _ = clay_repair_operator(ec, lost)
+                if any(h not in avail for h in helpers):
+                    return None
+                moved, whole = clay_repair_ici_bytes(
+                    ec, len(helpers), b, C)
+                repair = sharded_clay_repair
+                dp = mesh.shape["dp"]
+            else:
+                groups = len(ec.layers) - 1
+                mesh = self._mesh_host.lrc_repair_mesh(groups)
+                if mesh is None:
+                    return None
+                from ceph_tpu_torch.ec.repair_operator import \
+                    lrc_repair_operator
+                from ceph_tpu_torch.parallel.lrc_sharding import (
+                    lrc_repair_ici_bytes, sharded_lrc_repair)
+
+                _, minimum = lrc_repair_operator(ec, lost)
+                if any(h not in avail for h in minimum):
+                    return None
+                moved, whole = lrc_repair_ici_bytes(
+                    ec, len(minimum), b, C)
+                repair = sharded_lrc_repair
+                dp = mesh.shape["dp"]
+        except Exception:
+            # geometry probe failed (profile the operator can't serve
+            # locally, etc) — the classic decode path handles it
+            return None
+        # dp must divide the launched batch; zero stripes pad (rows are
+        # independent) and the pad slices off below
+        bp = -(-b // dp) * dp
+        chunks = np.zeros((bp, self.n, C), np.uint8)
+        for s, c in avail.items():
+            chunks[:b, int(s)] = np.asarray(c, np.uint8)
+        self.perf.inc("ec_device_launches")
+        self.perf.inc("ec_mesh_launches")
+        self.perf.inc("ec_launch_bytes", chunks.nbytes)
+        self.perf.inc("ec_resident_h2d_bytes", chunks.nbytes)
+        t0 = time.perf_counter()
+        rec = np.asarray(await asyncio.to_thread(
+            repair, mesh, ec, chunks, lost))[:b]
+        launch_us = (time.perf_counter() - t0) * 1e6
+        self.perf.hinc("ec_decode_launch_us", launch_us)
+        self.perf.hinc("ec_mesh_launch_us", launch_us)
+        self.profiler.record(f"{self.codec_sig}:mesh-repair",
+                             launch_us, stripes=b,
+                             hbm_bytes=chunks.nbytes)
+        self.perf.inc("ec_mesh_ici_bytes", moved)
+        self.perf.inc("ec_mesh_ici_whole_bytes", whole)
+        self.perf.inc("ec_resident_d2h_bytes", rec.nbytes)
+        self.mesh_stats["repairs"] += 1
+        out = {w: avail[w] for w in missing if w in avail}
+        out[lost] = rec
+        return out
+
     def _track_op(self):
         """In-flight op accounting for the coalescer's adaptive window:
         when every tracked op is parked in the launcher, nothing else
@@ -988,6 +1212,8 @@ class ECBackend:
                 backend._inflight_ops -= 1
                 if backend.coalescer is not None:
                     backend.coalescer.notify()
+                if backend.mesh_co is not None:
+                    backend.mesh_co.notify()
                 return False
 
         return _Track()

@@ -20,9 +20,10 @@ into the shared :class:`PerfCounters` so the Prometheus export
 picks them up with no extra wiring.
 
 Counterpart of ceph_tpu/store/device_cache.py over torch tensors on an
-explicit device (``device=None``: CUDA, raising without it).  The JAX
-cache's mesh placement (``sharding``, ``set_sharding``) waits for the
-port's multi-device planes (ROADMAP A10): anything but None raises.
+explicit device (``device=None``: CUDA, raising without it).  Its mesh
+placement (``sharding``, a ``parallel.mesh.NamedSharding``) counts an
+entry as placed when every slot of the sharding lies on the cache's
+device: a launch then splits it into views with no copy.
 """
 
 from __future__ import annotations
@@ -80,29 +81,41 @@ class DeviceShardCache:
         self.evictions = 0
         self.hits = 0
         self.misses = 0
-        # mesh placement is the multi-device plane's (ROADMAP A10)
-        self.sharding = None
-        self.set_sharding(sharding)
+        # mesh-aware placement: when the host runs the mesh-
+        # global EC coalescer, installed streams pre-place with the
+        # launch's batch sharding so a resident read feeds a sharded
+        # launch with neither a host round trip nor a gather-to-one-
+        # device copy at launch time.
+        self.sharding = sharding
         self.reshards = 0
         # flight recorder: the owning daemon's event journal (None for
         # standalone caches); evict() emits one watermark event per pass
         self.journal = journal
 
     def set_sharding(self, sharding) -> None:
-        """Only None: placing entries with a mesh sharding is the port's
-        multi-device plane, not ported yet."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceShardCache sharding is the multi-device plane "
-                "(ROADMAP A10), not ported yet")
+        """Adopt (or drop, with None) the placement applied to
+        subsequently installed device entries.  Existing entries keep
+        their placement — they split lazily if a launch needs it."""
+        self.sharding = sharding
 
     def _place(self, arr):
-        """Host arrays install as they are; a tensor must already lie on
-        this cache's device (nothing is moved behind the caller's
-        back)."""
+        """Check a tensor lies on this cache's device (nothing is moved
+        behind the caller's back) and place it with the cache sharding
+        when its leading axis tiles evenly.  A tensor on the device the
+        sharding's slots all share is placed as it lies (a launch takes
+        its pieces as views: counted in ``reshards``); with slots on
+        other devices it installs as-is and its pieces move device to
+        device at launch, never through the host.  Host arrays install
+        as-is."""
         if isinstance(arr, torch.Tensor) and arr.device != self.device:
             raise ValueError(
                 f"tensor on {arr.device}, cache on {self.device}")
+        if self.sharding is None or not isinstance(arr, torch.Tensor):
+            return arr
+        slots = self.sharding.device_set
+        if arr.ndim >= 1 and arr.shape[0] % max(1, len(slots)) == 0 \
+                and {s.device for s in slots} == {arr.device}:
+            self.reshards += 1
         return arr
 
     # -- lookup / install -------------------------------------------------

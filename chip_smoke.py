@@ -148,7 +148,32 @@ and, phase by phase, raising on any failure:
    handler to the last's.  It fails if B1 or B2 was not launched or the
    phase outran its budget (240 s); its launches join the ``kernels``
    line's counts;
-8. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+8. runs the mesh planes (``mesh_phase``, wave (g)) with the counts set to
+   0, 8 slots forced over the card (``parallel.mesh.forced_device_count``),
+   each with its own stream: ``sharded_encode`` and ``distributed_ec_step``
+   of the headline batch (16384 x 4 KiB, k=8 m=4, dp=2 cs=4) against the
+   single-device ``encode_words_device`` result and the encoded chunk 3,
+   ``ShardedApplier`` encode and 4-erasure decode, ``sharded_clay_repair``
+   (CLAY k=8 m=4 d=11) and ``sharded_lrc_repair`` (k=12 m=4 l=4, 4 groups
+   of 2 slots, chunks 0 and 6) at 512 stripes of 64 KiB chunks, each timed
+   with CUDA events beside the single-device call for the same work; then
+   bench.py's cfg8 arms: two ``ECBackend``s on one ``MeshCoalescer``, 64
+   concurrent 4 MiB writes each, read back (a launch must carry both
+   backends' ops, and the stripes reach all 8 slots), SHEC k=4 m=3 c=2's
+   sharded encode, CLAY and LRC degraded reads through the sub-chunk
+   repair (modelled interconnect bytes at most half the whole-chunk
+   bytes), the ``osd_ec_mesh_cs`` plane writing, reading and
+   ``recover_batch``-ing 64 x 4 MiB, a resident batchmate with no bytes to
+   the device; then 1 port mon and 12 port OSD daemons with
+   ``osd_ec_mesh_coalesce`` on MemStores, the 8+4 pool of 16 PGs, 64 x 4
+   MiB written and read back, one OSD killed and marked down, every object
+   read degraded, the ``ec mesh stats`` wire reply naming the
+   mesh-coalesced plane with fewer launches than ops and two or more
+   backends in one launch.  One "[mesh]" JSON line per step; it fails on
+   any difference, if B1 or B3 was not launched, if a batch axis does not
+   split over all 8 slots, or if the phase outran its budget (120 s); its
+   launches join the ``kernels`` line's counts;
+9. prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without CUDA, or when the package is
@@ -1561,6 +1586,537 @@ def osd_phase(dev, seed: int) -> dict:
     return {"waves": waves, "seconds": time.perf_counter() - t_phase}
 
 
+# The mesh phase, wave (g): the multi-device planes on MESH_SLOTS slots
+# forced over one device (parallel.mesh.forced_device_count), each slot with
+# its own stream.  Planes at the headline (k=8 m=4 reed_sol_van, 16384 x 4
+# KiB on dp=2 cs=4; CLAY k=8 m=4 d=11 and LRC k=12 m=4 l=4 at 512 stripes of
+# 64 KiB chunks), bench.py's cfg8 arms at the OSD phase's width (64 x 4 MiB
+# writes through two backends on one MeshCoalescer, SHEC k=4 m=3 c=2, the
+# CLAY/LRC sub-chunk repairs at 128 stripes of 64 KiB chunks, the
+# osd_ec_mesh_cs plane, a resident batchmate), then 12 port OSD daemons on
+# the host coalescer serving the Ceph docs' 8+4 pool of MESH_PG_NUM PGs.
+MESH_SLOTS = 8
+MESH_CS = 4
+MESH_BUDGET_S = 120.0
+MESH_LRC = {"k": "12", "m": "4", "l": "4"}
+MESH_LRC_GROUPS = 4
+MESH_LRC_LOST = (0, 6)
+MESH_SHEC = {"k": "4", "m": "3", "c": "2"}
+MESH_SHEC_STRIPES = 4096          # 16 MiB of data at 1 KiB chunks
+MESH_BACKEND_REPAIR_STRIPES = 128
+MESH_PG_NUM = 16
+MESH_VICTIM = 5
+
+
+def mesh_phase(dev, *, stripes: int = STRIPES,
+               repair_stripes: int = CLAY_STRIPES,
+               repair_sc: int = CLAY_SC,
+               backend_repair_stripes: int = MESH_BACKEND_REPAIR_STRIPES,
+               objects: int = OSD_OBJECTS,
+               object_bytes: int = OSD_OBJECT_BYTES,
+               shec_stripes: int = MESH_SHEC_STRIPES,
+               pg_num: int = MESH_PG_NUM, seconds=None, sync=None,
+               seed: int = SEED, note=log) -> dict:
+    """Wave (g) on ``dev`` (the card, or the CPU for a rehearsal at small
+    sizes): every step checked exact, one "[mesh]" JSON line each (wall
+    seconds, client GiB/s where a client writes, kernel launches, the
+    per-slot stripes read off the placed batch, the modelled interconnect
+    bytes beside the whole-chunk bytes where a repair has them, and the
+    bytes the mesh moved: ``slot`` between slots, ``host`` uploaded,
+    ``place`` device to device).  ``seconds(fn)``: device seconds per call
+    of fn (CUDA events on the card), each plane beside its single-device
+    call for the same work.  Raises on any failure, on a batch axis that
+    does not split over every slot, and when B1 or B3 was not launched;
+    returns the steps, the launches and the phase's seconds."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch import vstart
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.ec import reference
+    from ceph_tpu_torch.ec.engine import default_engine
+    from ceph_tpu_torch.ec.matrix import generator_matrix
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ec.repair_operator import (clay_repair_operator,
+                                                   lrc_repair_operator)
+    from ceph_tpu_torch.msg import reset_local_namespace
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShard
+    from ceph_tpu_torch.osd.mesh_coalesce import (MeshCoalescer,
+                                                  reset_host_coalescer)
+    from ceph_tpu_torch.parallel import clay_sharding, lrc_sharding, mesh
+    from ceph_tpu_torch.parallel.ec_sharding import (ShardedApplier,
+                                                     distributed_ec_step,
+                                                     make_ec_mesh,
+                                                     shard_layout,
+                                                     sharded_encode)
+    from ceph_tpu_torch.placement import compiler
+    from ceph_tpu_torch.store import (CollectionId, GHObject, MemStore,
+                                      Transaction)
+
+    dev = torch.device(dev)
+    sync = sync or (torch.cuda.synchronize if dev.type == "cuda"
+                    else (lambda: None))
+    rng = np.random.default_rng(seed)
+    registry = ErasureCodePluginRegistry()
+    steps: dict = {}
+    t_phase = time.perf_counter()
+
+    def factory(plugin, profile):
+        return registry.factory(plugin, dict(profile), device=dev)
+
+    def rand_dev(shape) -> torch.Tensor:
+        return torch.from_numpy(
+            rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    def split_over_all(layout, what):
+        if len(layout) != MESH_SLOTS or min(layout.values()) <= 0:
+            raise AssertionError(f"{what}: the batch axis split as {layout},"
+                                 f" not over all {MESH_SLOTS} slots")
+
+    def exact(got, want, what):
+        got = got if isinstance(got, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(got))
+        want = want if isinstance(want, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(want))
+        if not torch.equal(got.to(want.device), want):
+            raise AssertionError(f"{what} differs")
+
+    def begin():
+        sync()
+        return time.perf_counter(), dict(ck.LAUNCHES), dict(mesh.TRAFFIC)
+
+    def record(step, start, nbytes=None, timing=None, **kw):
+        """The step's line: what ran since ``start``, then (``timing``)
+        its device times, which neither its wall time nor its counts
+        include."""
+        sync()
+        t0, k0, m0 = start
+        sec = time.perf_counter() - t0
+        rec = {"step": step, "wall_s": sec,
+               "client_gib_s": (None if nbytes is None
+                                else nbytes / sec / 2**30),
+               "kernel_launches": {k: v - k0[k] for k, v in
+                                   ck.LAUNCHES.items() if v != k0[k]},
+               "moved_bytes": {k: v - m0[k] for k, v in
+                               mesh.TRAFFIC.items()}, **kw}
+        if timing is not None:
+            rec.update(timing())
+        steps[step] = rec
+        note(f"[mesh] {json.dumps(rec)}")
+        return rec
+
+    def timed(mesh_fn, single_fn):
+        """A ``timing`` of the mesh call beside the single-device call for
+        the same work; their launches and moved bytes are not counted."""
+        if seconds is None:
+            return None
+
+        def timing():
+            k0, m0 = dict(ck.LAUNCHES), dict(mesh.TRAFFIC)
+            out = {"mesh_ms": seconds(mesh_fn) * 1e3,
+                   "single_ms": seconds(single_fn) * 1e3}
+            ck.LAUNCHES.update(k0)
+            mesh.TRAFFIC.update(m0)
+            return out
+        return timing
+
+    # -- 1. the planes at the headline ----------------------------------------
+    slots = mesh.local_devices(dev)
+    if len(slots) != MESH_SLOTS or {s.device for s in slots} != {dev}:
+        raise AssertionError(f"slots {slots}: not {MESH_SLOTS} over {dev}")
+    m_ec = make_ec_mesh(slots, cs=MESH_CS)
+    G = generator_matrix("reed_sol_van", K, M)
+    codec = factory("jax_rs", {"k": str(K), "m": str(M),
+                               "technique": "reed_sol_van"})
+    eng = default_engine(dev)
+    data = rand_dev((stripes, K, CHUNK))
+    words = ck.bytes_to_words(data.permute(1, 0, 2).reshape(K, -1))
+    parity = ck.words_to_bytes(codec.encode_words_device(words)) \
+        .reshape(M, stripes, CHUNK).permute(1, 0, 2)
+    full = torch.cat([data, parity], dim=1)
+    nbytes = data.numel()
+
+    start = begin()
+    enc = sharded_encode(m_ec, G, data)
+    layout = shard_layout(enc)
+    exact(enc.assemble(), full, "sharded_encode")
+    split_over_all(layout, "sharded_encode")
+    record("sharded_encode", start, per_slot_stripes=layout,
+           data_bytes=nbytes, timing=timed(
+               lambda: sharded_encode(m_ec, G, data),
+               lambda: codec.encode_chunks_device(data)))
+
+    lost = 3
+    survivors = [i for i in range(K + M) if i != lost][:K]
+    D1 = reference.decode_matrix(G, survivors, [lost])
+    surv_idx = torch.tensor(survivors, dtype=torch.long, device=dev)
+    start = begin()
+    shard, repaired = distributed_ec_step(m_ec, G, data, lost_chunk=lost)
+    exact(shard.assemble(), full, "distributed_ec_step's shard slices")
+    exact(repaired.assemble(), full[:, lost], "the repaired chunk 3")
+    layout = shard_layout(shard)
+    split_over_all(layout, "distributed_ec_step")
+    record("distributed_ec_step", start, per_slot_stripes=layout,
+           data_bytes=nbytes, timing=timed(
+               lambda: distributed_ec_step(m_ec, G, data, lost_chunk=lost),
+               lambda: eng.apply(D1, codec.encode_chunks_device(data)
+                                 .index_select(1, surv_idx))))
+
+    enc_ap = ShardedApplier(m_ec, G[K:])
+    start = begin()
+    x = enc_ap.place(data)
+    layout = shard_layout(x)
+    split_over_all(layout, "ShardedApplier encode")
+    exact(enc_ap.run_placed(x).assemble(), parity, "ShardedApplier encode")
+    record("applier_encode", start, per_slot_stripes=layout,
+           data_bytes=nbytes, timing=timed(
+               lambda: enc_ap.run_placed(enc_ap.place(data)),
+               lambda: eng.apply(G[K:], data)))
+
+    avail = [i for i in range(K + M) if i not in HEADLINE_LOST][:K]
+    D4 = reference.decode_matrix(G, avail, HEADLINE_LOST)
+    stacked = full.index_select(
+        1, torch.tensor(avail, dtype=torch.long, device=dev))
+    dec_ap = ShardedApplier(m_ec, D4)
+    start = begin()
+    x = dec_ap.place(stacked)
+    layout = shard_layout(x)
+    split_over_all(layout, "ShardedApplier decode")
+    exact(dec_ap.run_placed(x).assemble(), full.index_select(
+        1, torch.tensor(HEADLINE_LOST, dtype=torch.long, device=dev)),
+          f"ShardedApplier decode of {HEADLINE_LOST}")
+    record("applier_decode", start, per_slot_stripes=layout,
+           lost=HEADLINE_LOST, timing=timed(
+               lambda: dec_ap.run_placed(dec_ap.place(stacked)),
+               lambda: eng.apply(D4, stacked)))
+    del data, words, parity, full, enc, shard, repaired, x, stacked
+
+    clay = factory("clay", CLAY)
+    C = clay.sub_chunk_no * repair_sc
+    chunks = clay.encode_chunks_device(rand_dev((repair_stripes, K, C)))
+    R, helpers, planes = clay_repair_operator(clay, CLAY_LOST)
+    moved, whole = clay_sharding.clay_repair_ici_bytes(
+        clay, len(helpers), repair_stripes, C)
+
+    def clay_single():
+        """The same work on one device: the operator's probe (which the
+        mesh call makes too), the helpers' planes, one B3 apply."""
+        R, helpers, planes = clay_repair_operator(clay, CLAY_LOST)
+        b = chunks.shape[0]
+        hp = torch.stack([chunks[:, h].reshape(b, clay.sub_chunk_no,
+                                               repair_sc)[:, planes]
+                          for h in helpers], dim=1)
+        return clay_sharding.batched_clay_plane_repair_device(
+            clay, R, hp.reshape(b, -1, repair_sc))
+
+    start = begin()
+    got = clay_sharding.sharded_clay_repair(m_ec, clay, chunks, CLAY_LOST)
+    exact(got.assemble(), chunks[:, CLAY_LOST], "sharded_clay_repair")
+    layout = shard_layout(got)
+    if len(layout) != MESH_SLOTS:
+        raise AssertionError(f"sharded_clay_repair ran on {layout}")
+    record("sharded_clay_repair", start, per_slot_stripes=layout,
+           ici_bytes=moved, ici_whole_bytes=whole,
+           repaired_bytes=repair_stripes * C, timing=timed(
+               lambda: clay_sharding.sharded_clay_repair(
+                   m_ec, clay, chunks, CLAY_LOST), clay_single))
+    del chunks, got
+
+    lrc = factory("lrc", MESH_LRC)
+    m_grp = lrc_sharding.make_group_mesh(slots, MESH_LRC_GROUPS)
+    chunks = lrc.encode_chunks_device(
+        rand_dev((repair_stripes, lrc.get_data_chunk_count(), C)))
+
+    def lrc_single(lost_one):
+        """The same work on one device: the operator's probe, the group's
+        chunks, one apply, the chunk back to the host (the mesh call
+        returns it there too)."""
+        coeffs, minimum = lrc_repair_operator(lrc, lost_one)
+        idx = torch.tensor(minimum, dtype=torch.long, device=dev)
+        return eng.apply(coeffs, chunks.index_select(1, idx)).cpu().numpy()
+
+    for lrc_lost in MESH_LRC_LOST:
+        coeffs, minimum = lrc_repair_operator(lrc, lrc_lost)
+        moved, whole = lrc_sharding.lrc_repair_ici_bytes(
+            lrc, len(minimum), repair_stripes, C)
+        start = begin()
+        got = lrc_sharding.sharded_lrc_repair(m_grp, lrc, chunks, lrc_lost)
+        exact(got, chunks[:, lrc_lost], f"sharded_lrc_repair of {lrc_lost}")
+        record(f"sharded_lrc_repair_{lrc_lost}", start,
+               groups=MESH_LRC_GROUPS, gs=MESH_SLOTS // MESH_LRC_GROUPS,
+               ici_bytes=moved, ici_whole_bytes=whole,
+               repaired_bytes=repair_stripes * C, timing=timed(
+                   lambda: lrc_sharding.sharded_lrc_repair(
+                       m_grp, lrc, chunks, lrc_lost),
+                   functools.partial(lrc_single, lrc_lost)))
+    del chunks, got
+
+    # -- 2. cfg8 at the OSD phase's width, backend level ----------------------
+    async def backend(plugin, profile, unit, **kw):
+        ec = factory(plugin, profile)
+        stores, shards = {}, {}
+        for i in range(ec.get_chunk_count()):
+            store = MemStore()
+            cid = CollectionId(1, 0, shard=i)
+            await store.queue_transactions(
+                Transaction().create_collection(cid))
+            stores[i] = (store, cid)
+            shards[i] = LocalShard(store, cid, pool=1, shard=i)
+        be = ECBackend(ec, shards, stripe_unit=unit, **kw)
+        be._stores = stores
+        return be
+
+    def ici(*bes):
+        return {k: sum(b.perf.value(k) for b in bes) for k in (
+            "ec_mesh_ici_bytes", "ec_mesh_ici_whole_bytes")}
+
+    async def cfg8():
+        rs = {"k": str(K), "m": str(M), "technique": "reed_sol_van"}
+        co = MeshCoalescer(devices=slots)
+        b1 = await backend("jax_rs", rs, CHUNK, mesh_coalescer=co)
+        b2 = await backend("jax_rs", rs, CHUNK, mesh_coalescer=co)
+        if b1.mesh_co is not co or b2.mesh_co is not co:
+            raise AssertionError("cfg8: the backends did not join the mesh")
+        datas = {f"obj-{i}": rng.bytes(object_bytes) for i in range(objects)}
+        start = begin()
+        await asyncio.gather(*(b.write(o, d) for o, d in datas.items()
+                               for b in (b1, b2)))
+        w_s = time.perf_counter() - start[0]
+        for b in (b1, b2):
+            got = await asyncio.gather(*(b.read(o) for o in datas))
+            if got != list(datas.values()):
+                raise AssertionError("cfg8: read-back differs")
+        st = co.stats()
+        if st["cross_backend_launches"] < 1:
+            raise AssertionError(f"cfg8: no launch carried two backends' "
+                                 f"ops: {st}")
+        split_over_all(st["per_device_stripes"], "cfg8's coalescer")
+        record("cfg8_coalesced", start, 4 * objects * object_bytes,
+               write_s=w_s, write_gib_s=2 * objects * object_bytes / w_s
+               / 2**30, **{k: st[k] for k in (
+                   "launches", "ops", "cross_backend_launches",
+                   "max_backends_in_launch", "buckets",
+                   "per_device_stripes")})
+
+        bs = await backend("shec", MESH_SHEC, 1024, mesh_coalescer=co)
+        if bs.mesh_co is not co:
+            raise AssertionError("cfg8: the shec backend did not join")
+        batch = rng.integers(0, 256, (shec_stripes, bs.k,
+                                      bs.sinfo.chunk_size), dtype=np.uint8)
+        start = begin()
+        got = await bs._coalesced_encode(batch)
+        exact(got, await bs._encode_batch(batch),
+              "cfg8: shec's sharded encode")
+        record("cfg8_shec_encode", start, per_slot_stripes=dict(
+            co.stats()["last_per_device"]))
+
+        for plugin, profile, lost_one in (("clay", CLAY, CLAY_LOST),
+                                          ("lrc", MESH_LRC, 6)):
+            be = await backend(plugin, profile, C, mesh_coalescer=co)
+            await be_repair(be, plugin, lost_one)
+
+    async def be_repair(be, plugin, lost_one):
+        batch = rng.integers(0, 256, (backend_repair_stripes, be.k,
+                                      be.sinfo.chunk_size), dtype=np.uint8)
+        full = np.asarray(await be._encode_batch(batch))
+        avail = {i: full[:, i] for i in range(be.n) if i != lost_one}
+        start = begin()
+        got = await be._coalesced_decode(avail, [lost_one])
+        exact(got[lost_one], full[:, lost_one],
+              f"cfg8: {plugin}'s degraded read")
+        c = ici(be)
+        if be.mesh_stats["repairs"] != 1:
+            raise AssertionError(f"cfg8: {plugin}'s degraded read did not "
+                                 f"take the sub-chunk repair")
+        if not 0 < c["ec_mesh_ici_bytes"] * 2 <= \
+                c["ec_mesh_ici_whole_bytes"]:
+            raise AssertionError(f"cfg8: {plugin} moved {c}")
+        record(f"cfg8_{plugin}_repair", start, lost=lost_one,
+               stripes=backend_repair_stripes,
+               chunk_bytes=be.sinfo.chunk_size,
+               ici_bytes=c["ec_mesh_ici_bytes"],
+               ici_whole_bytes=c["ec_mesh_ici_whole_bytes"])
+
+    async def mesh_cs_plane():
+        rs = {"k": str(K), "m": str(M), "technique": "reed_sol_van"}
+        be = await backend("jax_rs", rs, CHUNK,
+                           mesh=make_ec_mesh(slots, cs=MESH_CS))
+        if be.mesh is None:
+            raise AssertionError("osd_ec_mesh_cs plane: no mesh")
+        names = [f"cs-{i}" for i in range(objects)]
+        datas = {nm: rng.bytes(object_bytes) for nm in names}
+        start = begin()
+        await asyncio.gather(*(be.write(o, d) for o, d in datas.items()))
+        got = await asyncio.gather(*(be.read(o) for o in names))
+        if got != [datas[o] for o in names]:
+            raise AssertionError("osd_ec_mesh_cs plane: read-back differs")
+        for nm in names:
+            for s in OSD_LOST:
+                store, cid = be._stores[s]
+                await store.queue_transactions(
+                    Transaction().remove(cid, GHObject(1, nm, shard=s)))
+        res = await be.recover_batch(names, OSD_LOST)
+        if sorted(res["recovered"]) != sorted(names):
+            raise AssertionError(f"osd_ec_mesh_cs plane: recover_batch "
+                                 f"left objects: {res}")
+        got = await asyncio.gather(*(be.read(o) for o in names))
+        if got != [datas[o] for o in names]:
+            raise AssertionError("osd_ec_mesh_cs plane: read after "
+                                 "recover_batch differs")
+        if be.mesh_stats["encodes"] < 1:
+            raise AssertionError(f"osd_ec_mesh_cs plane: {be.mesh_stats}")
+        record("mesh_cs_plane", start, 3 * objects * object_bytes,
+               mesh={"dp": MESH_SLOTS // MESH_CS, "cs": MESH_CS},
+               encodes=be.mesh_stats["encodes"],
+               decodes=be.mesh_stats["decodes"],
+               recover_batches=res["batches"])
+
+    async def resident_batchmate():
+        co = MeshCoalescer(devices=slots)
+        be = await backend("jax_rs", {"k": str(K), "m": str(M),
+                                      "technique": "reed_sol_van"},
+                           CHUNK, mesh_coalescer=co, resident=True)
+        if be.resident is None or be.mesh_co is not co:
+            raise AssertionError("resident batchmate: no resident mesh "
+                                 "backend")
+        batch = rand_dev((stripes // 16, K, CHUNK))
+        h2d0 = be.perf.value("ec_resident_h2d_bytes")
+        start = begin()
+        got = await be._coalesced_encode(batch)
+        h2d = be.perf.value("ec_resident_h2d_bytes") - h2d0
+        if not be._is_device(got) or h2d != 0:
+            raise AssertionError(f"resident batchmate: {h2d} H2D bytes")
+        exact(got, codec.encode_chunks_device(batch), "resident batchmate")
+        rec = record("resident_batchmate", start, h2d_bytes=h2d,
+                     per_slot_stripes=dict(co.stats()["last_per_device"]))
+        if rec["moved_bytes"]["host"] or rec["moved_bytes"]["place"]:
+            raise AssertionError(f"resident batchmate moved "
+                                 f"{rec['moved_bytes']}")
+        split_over_all(rec["per_slot_stripes"], "resident batchmate")
+
+    asyncio.run(cfg8())
+    asyncio.run(mesh_cs_plane())
+    asyncio.run(resident_batchmate())
+
+    # -- 3. the daemons -------------------------------------------------------
+    async def daemons():
+        """1 mon and 12 OSD daemons (one per CRUSH host, MemStores) with
+        ``osd_ec_mesh_coalesce`` on, the 8+4 pool of ``pg_num`` PGs,
+        ``objects`` concurrent writes through a ``Rados``, read back; one
+        OSD killed and marked down, every object read degraded; the ``ec
+        mesh stats`` wire reply must name the mesh-coalesced plane, with
+        fewer launches than ops and two or more backends in one launch."""
+        liveness = {key: vstart.SCALE_TEST_OVERRIDES[key]
+                    for key in CLUSTER_LIVENESS}
+        reset_local_namespace()
+        reset_host_coalescer()
+        cluster = vstart.DevCluster(
+            n_mons=1, n_osds=CLUSTER_OSDS, osds_per_host=1, device=dev,
+            overrides={**liveness, "mon_osd_down_out_interval": 300.0,
+                       "osd_ec_mesh_coalesce": True})
+        rados = None
+        try:
+            start = begin()
+            await cluster.start()
+            rados = await cluster.client()
+            record("daemons_boot", start, osds=len(cluster.osds))
+
+            async def command(prefix, **kw):
+                r = await rados.mon_command(prefix, timeout=CLUSTER_WAIT_S,
+                                            **kw)
+                if r["rc"] != 0:
+                    raise AssertionError(f"{prefix}: {r}")
+
+            async def until(cond, what):
+                loop = asyncio.get_running_loop()
+                deadline = loop.time() + CLUSTER_WAIT_S
+                while not cond():
+                    if loop.time() > deadline:
+                        raise AssertionError(
+                            f"no {what} in {CLUSTER_WAIT_S} s")
+                    await asyncio.sleep(0.25)
+
+            text = compiler.decompile(rados.monc.osdmap.crush)
+            tunable = "tunable choose_total_tries 50\n"
+            await command("osd setcrushmap", map=text.replace(
+                tunable, f"tunable choose_total_tries {MAP_CHOOSE_TRIES}\n"))
+            await command("osd erasure-code-profile set", name="ec84",
+                          profile=dict(CLUSTER_PROFILE))
+            start = begin()
+            pool_id = await rados.pool_create(
+                "mesh", pool_type="erasure", erasure_code_profile="ec84",
+                pg_num=pg_num)
+
+            def active():
+                return sum(1 for o in cluster.osds.values()
+                           for pgid, pg in o.pgs.items()
+                           if pgid.pool == pool_id and pg.is_primary
+                           and pg.state == "active") == pg_num
+
+            await until(active, "active PGs")
+            record("daemons_pool", start, pg_num=pg_num)
+            io = await rados.open_ioctx("mesh")
+            datas = {f"mesh-{i}": rng.bytes(object_bytes)
+                     for i in range(objects)}
+            start = begin()
+            await asyncio.gather(*(io.write_full(o, d)
+                                   for o, d in datas.items()))
+            w_s = time.perf_counter() - start[0]
+            got = await asyncio.gather(*(io.read(o) for o in datas))
+            if got != list(datas.values()):
+                raise AssertionError("daemons: read-back differs")
+            record("daemons_write_read", start, 2 * objects * object_bytes,
+                   write_s=w_s,
+                   write_gib_s=objects * object_bytes / w_s / 2**30)
+            start = begin()
+            await cluster.kill_osd(MESH_VICTIM)
+            await command("osd down", ids=[MESH_VICTIM])
+            await until(lambda: not rados.monc.osdmap.is_up(MESH_VICTIM),
+                        f"osd.{MESH_VICTIM} down")
+            t0 = time.perf_counter()
+            got = await asyncio.gather(*(io.read(o) for o in datas))
+            read_s = time.perf_counter() - t0
+            if got != list(datas.values()):
+                raise AssertionError("daemons: degraded read differs")
+            host, planes, decodes = None, set(), 0
+            for osd_id in sorted(cluster.osds):
+                reply = await rados.osd_daemon_command(
+                    osd_id, "ec_mesh_stats", timeout=CLUSTER_WAIT_S)
+                host = reply.get("host") or host
+                for key, pg in reply.items():
+                    if key not in ("tid", "host"):
+                        planes.add(pg["plane"])
+                        decodes += pg["decodes"]
+            record("daemons_degraded_read", start, objects * object_bytes,
+                   read_s=read_s, victim=MESH_VICTIM, planes=sorted(planes),
+                   pg_decodes=decodes, **{k: host[k] for k in (
+                       "devices", "launches", "ops", "cross_backend_launches",
+                       "max_backends_in_launch", "per_device_stripes")})
+            if planes != {"mesh-coalesced"}:
+                raise AssertionError(f"daemons: planes {planes}")
+            if decodes < 1:
+                raise AssertionError("daemons: no degraded read took the mesh "
+                                     "decode plane")
+            if not host["launches"] < host["ops"] or \
+                    host["max_backends_in_launch"] < 2 or \
+                    host["cross_backend_launches"] < 1:
+                raise AssertionError(f"daemons: the host coalescer {host}")
+            split_over_all({int(k): v for k, v in
+                            host["per_device_stripes"].items()},
+                           "the daemons' host coalescer")
+        finally:
+            if rados is not None:
+                await rados.shutdown()
+            await cluster.stop()
+            reset_local_namespace()
+            reset_host_coalescer()
+
+    asyncio.run(daemons())
+    return {"steps": steps, "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2769,7 +3325,29 @@ def main() -> int:
         raise AssertionError(f"the cluster phase took "
                              f"{cluster['seconds']:.1f} s")
 
-    # -- 8. result lines ------------------------------------------------------
+    # -- 8. the mesh planes, counted -----------------------------------------
+    # Wave (g): 8 slots over the card, each with its own stream (mesh_phase).
+    # B1 carries every slot's encode and decode, B3 the sharded CLAY repair.
+    # It runs after (f), so that (a)-(f) are measured as before.
+    from ceph_tpu_torch.parallel import mesh as mesh_mod
+
+    ck.reset_launch_counts()
+    with mesh_mod.forced_device_count(MESH_SLOTS, dev):
+        mesh_mod.reset_traffic()
+        mesh = mesh_phase(dev, seconds=lambda fn: time_it(fn, 3, 3))
+    mesh_launches = counts()
+    log(f"[main path: mesh] launches {mesh_launches}; {len(mesh['steps'])} "
+        f"steps in {mesh['seconds']:.2f} s (budget {MESH_BUDGET_S:.0f} s)")
+    for name in ("gf2_apply_words", "gf2_apply_grouped"):
+        if mesh_launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"mesh main path")
+    for name in ck.LAUNCHES:
+        main_launches[name] += mesh_launches[name]
+    if mesh["seconds"] > MESH_BUDGET_S:
+        raise AssertionError(f"the mesh phase took {mesh['seconds']:.1f} s")
+
+    # -- 9. result lines ------------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",

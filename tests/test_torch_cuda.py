@@ -536,3 +536,38 @@ def test_resident_backend_round_trip(cuda):
             assert await be.read(o) == d
 
     asyncio.run(run())
+
+
+def test_mesh_planes_on_slots_of_the_card(cuda):
+    """8 slots over the card, each with its own stream: the EC step and
+    the CLAY repair equal the single-device results over repeated calls,
+    each call's input freed before its results are read (the caching
+    allocator may hand its memory to the next call's work)."""
+    from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+    from ceph_tpu_torch.parallel import (distributed_ec_step, make_ec_mesh,
+                                         sharded_clay_repair)
+    from ceph_tpu_torch.parallel.mesh import forced_device_count
+
+    G = generator_matrix("reed_sol_van", 8, 4)
+    ec = ErasureCodeJaxRS({"k": "8", "m": "4", "technique": "reed_sol_van"},
+                          device=cuda)
+    clay = ErasureCodePluginRegistry().factory(
+        "clay", {"k": "8", "m": "4", "d": "11"}, device=cuda)
+    with forced_device_count(8, cuda) as slots:
+        assert len({s.stream.cuda_stream for s in slots}) == 8
+        mesh = make_ec_mesh(slots, cs=4)
+        results = []
+        for i in range(4):
+            data = _u8((1024, 8, 512), 40 + i, cuda)
+            want = ec.encode_chunks_device(data)
+            results.append((distributed_ec_step(mesh, G, data, 3), want))
+            del data
+        for (shard, repaired), want in results:
+            assert torch.equal(shard.assemble(), want)
+            assert torch.equal(repaired.assemble(), want[:, 3])
+        chunks = clay.encode_chunks_device(
+            _u8((64, 8, clay.sub_chunk_no * 64), 50, cuda))
+        before = ck.LAUNCHES["gf2_apply_grouped"]
+        got = sharded_clay_repair(mesh, clay, chunks, 3)
+        assert ck.LAUNCHES["gf2_apply_grouped"] == before + 8
+        assert torch.equal(got.assemble(), chunks[:, 3])

@@ -808,19 +808,6 @@ def test_backend_runs_on_its_codecs_device():
     assert be.resident.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("arg", ["mesh", "mesh_coalescer"])
-def test_mesh_planes_raise_naming_a10(arg):
-    P = Pkg("port")
-
-    async def run():
-        codec = P.codec()
-        shards = {i: None for i in range(codec.get_chunk_count())}
-        P.eb.ECBackend(codec, shards, stripe_unit=128, **{arg: object()})
-
-    with pytest.raises(NotImplementedError, match="A10"):
-        asyncio.run(run())
-
-
 def test_resident_cache_on_another_device_refused():
     P = Pkg("port")
     cache = P.cache()

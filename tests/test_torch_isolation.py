@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -338,6 +339,59 @@ asyncio.run(run())
 """ + CHECK
 
 
+# The multi-device planes: the mesh functions, the host mesh coalescer with
+# two backends sharing one launch, and the entry points, on 8 slots
+# forced over the CPU.
+BLOCKED_MESH_RUN = BLOCKER + r"""
+import asyncio
+import numpy as np
+import torch
+torch.cuda.is_available = lambda: False
+from ceph_tpu_torch import entry
+from ceph_tpu_torch.ec.matrix import generator_matrix
+from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
+from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShard
+from ceph_tpu_torch.osd.mesh_coalesce import MeshCoalescer
+from ceph_tpu_torch.parallel import distributed_ec_step, make_ec_mesh, mesh
+from ceph_tpu_torch.store import CollectionId, MemStore, Transaction
+
+try:
+    make_ec_mesh()
+except RuntimeError:
+    pass
+else:
+    raise SystemExit("a mesh without CUDA")
+mesh.force_device_count(8, device="cpu")
+G = generator_matrix("reed_sol_van", 8, 4)
+data = np.random.default_rng(0).integers(0, 256, (16, 8, 128), np.uint8)
+shard, rep = distributed_ec_step(make_ec_mesh(cs=4), G, data, 3)
+assert np.array_equal(np.asarray(rep), np.asarray(shard)[:, 3])
+
+async def backend(co):
+    codec = ErasureCodePluginRegistry().factory(
+        "jax_rs", {"k": "4", "m": "2"}, device="cpu")
+    store, shards = MemStore(), {}
+    for i in range(6):
+        cid = CollectionId(1, 0, shard=i)
+        await store.queue_transactions(Transaction().create_collection(cid))
+        shards[i] = LocalShard(store, cid, pool=1, shard=i)
+    return ECBackend(codec, shards, stripe_unit=128, mesh_coalescer=co)
+
+async def run():
+    co = MeshCoalescer()
+    a, b = await backend(co), await backend(co)
+    await asyncio.gather(*(x.write(f"o{i}", bytes([i]) * 4096)
+                           for x in (a, b) for i in range(8)))
+    assert await b.read("o5") == bytes([5]) * 4096
+    st = co.stats()
+    assert st["cross_backend_launches"] >= 1 and st["devices"] == 8, st
+
+asyncio.run(run())
+mesh.force_device_count(None)
+entry.dryrun_multichip(8, device="cpu")
+""" + CHECK
+
+
 def _run_blocked(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -378,6 +432,10 @@ def test_mon_and_client_run_with_jax_and_ceph_tpu_blocked():
 
 def test_daemon_and_dev_cluster_run_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_CLUSTER_RUN)
+
+
+def test_mesh_planes_run_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_MESH_RUN)
 
 
 def test_native_library_builds_from_the_ports_sources_only():
@@ -506,26 +564,58 @@ def test_dev_cluster_start_without_device_raises_without_cuda(monkeypatch):
         reset_local_namespace()
 
 
-def test_osd_daemon_mesh_planes_raise_naming_a10():
-    """``osd_ec_mesh_cs`` and ``osd_ec_mesh_coalesce`` (and the sharded
-    resident cache behind the latter) are the multi-device plane."""
+def test_osd_daemon_mesh_planes_take_the_forced_slots():
+    """``osd_ec_mesh_cs`` and ``osd_ec_mesh_coalesce`` build their planes
+    over ``local_devices(device)``: with 8 slots forced over the CPU, a
+    (dp=4, cs=2) mesh, the host coalescer on the CPU pool and a resident
+    cache placed with its sharding; without the options, none of them."""
     from ceph_tpu_torch.common.config import ConfigProxy
-    from ceph_tpu_torch.osd.daemon import OSDDaemon
+    from ceph_tpu_torch.osd import daemon as daemon_mod
+    from ceph_tpu_torch.osd import mesh_coalesce
+    from ceph_tpu_torch.parallel import mesh
 
     def daemon(**conf):
-        return OSDDaemon(0, {"a": "local://mon.a"},
-                         ConfigProxy(overrides=conf), device="cpu")
+        return daemon_mod.OSDDaemon(0, {"a": "local://mon.a"},
+                                    ConfigProxy(overrides=conf),
+                                    device="cpu")
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        daemon(osd_ec_mesh_cs=2)._ec_mesh()
-    coalesced = daemon(osd_ec_mesh_coalesce=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        coalesced._host_coalescer()
-    with pytest.raises(NotImplementedError, match="A10"):
-        coalesced._resident_cache()
-    plain = daemon()
-    assert plain._ec_mesh() is None and plain._host_coalescer() is None
-    assert plain._resident_cache().device == torch.device("cpu")
+    mesh.force_device_count(8, device="cpu")
+    daemon_mod._EC_MESH_CACHE.clear()
+    mesh_coalesce.reset_host_coalescer()
+    try:
+        ec_mesh = daemon(osd_ec_mesh_cs=2)._ec_mesh()
+        assert dict(ec_mesh.shape) == {"dp": 4, "cs": 2}
+        assert [s.device for s in ec_mesh.slots()] == \
+            [torch.device("cpu")] * 8
+        assert daemon(osd_ec_mesh_cs=3)._ec_mesh() is None   # 3 ∤ 8
+        coalesced = daemon(osd_ec_mesh_coalesce=True)
+        co = coalesced._host_coalescer()
+        assert co is mesh_coalesce.host_coalescer() and co.total == 8
+        cache = coalesced._resident_cache()
+        assert cache.device == torch.device("cpu")
+        assert len(cache.sharding.device_set) == 8
+        plain = daemon()
+        assert plain._ec_mesh() is None and plain._host_coalescer() is None
+        assert plain._resident_cache().sharding is None
+    finally:
+        mesh.force_device_count(None)
+        daemon_mod._EC_MESH_CACHE.clear()
+        mesh_coalesce.reset_host_coalescer()
+
+
+def test_make_ec_mesh_without_devices_raises_without_cuda(monkeypatch):
+    """No devices given, none forced and no CUDA: the mesh raises rather
+    than falling back to the CPU."""
+    from ceph_tpu_torch.parallel import make_ec_mesh, mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mesh, "_FORCED", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_ec_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.local_devices()
+    assert [s.device for s in mesh.local_devices("cpu")] == \
+        [torch.device("cpu")]
 
 
 def test_vstart_imports_no_mds_mgr_or_rgw():
@@ -557,15 +647,27 @@ print("vstart-ok")
     assert "vstart-ok" in res.stdout
 
 
-def test_device_shard_cache_sharding_raises_naming_a10():
+def test_device_shard_cache_places_entries_on_its_slots():
+    """An entry whose leading axis tiles over the sharding's slots, all on
+    the cache's device, is placed as it lies (``reshards``); an entry that
+    does not tile, or a cache without a sharding, places nothing."""
+    from ceph_tpu_torch.parallel import make_ec_mesh, mesh
     from ceph_tpu_torch.store import DeviceShardCache
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        DeviceShardCache(device="cpu", sharding=object())
-    cache = DeviceShardCache(device="cpu")
+    slots = [mesh.MeshDevice(i, torch.device("cpu")) for i in range(8)]
+    sharding = mesh.NamedSharding(make_ec_mesh(slots),
+                                  mesh.PartitionSpec(("dp", "cs")))
+    cache = DeviceShardCache(device="cpu", sharding=sharding)
+    cache.put("ns", "a", 0, torch.zeros(64, dtype=torch.uint8), 1)
+    cache.put("ns", "b", 0, torch.zeros(63, dtype=torch.uint8), 1)
+    cache.put("ns", "c", 0, np.zeros(64, np.uint8), 1)
+    assert cache.reshards == 1
     cache.set_sharding(None)
-    with pytest.raises(NotImplementedError, match="A10"):
-        cache.set_sharding(object())
+    cache.put("ns", "d", 0, torch.zeros(64, dtype=torch.uint8), 1)
+    assert cache.reshards == 1
+    with pytest.raises(ValueError):
+        cache.put("ns", "e", 0, torch.zeros(64, dtype=torch.uint8,
+                                            device="meta"), 1)
 
 
 # -- the port's copies of reference modules -----------------------------------
@@ -709,13 +811,16 @@ class _DropDeviceDepartures(_Normalise):
     """The port's departures in osd/daemon.py and vstart.py taken out: the
     ``device`` parameter of ``cls``'s ``__init__``, its one assignment to
     ``self.device``, the ``device=self.device`` keywords that pass it on,
-    the import of ``resolve_device``, and ``cuda_kernels`` where the
-    reference names ``pallas_kernels``.  Each is counted."""
+    the import of ``resolve_device``, ``cuda_kernels`` where the reference
+    names ``pallas_kernels``, and the port's mesh where the reference
+    takes ``jax.sharding`` and ``jax.devices()``.  Each is counted."""
+
+    MESH = "ceph_tpu_torch.parallel.mesh"
 
     def __init__(self, cls):
         self.cls = cls
         self.dropped = {"param": 0, "assign": 0, "keyword": 0, "import": 0,
-                        "variant": 0}
+                        "variant": 0, "mesh": 0}
 
     def visit_ClassDef(self, node):
         if node.name == self.cls:
@@ -742,6 +847,12 @@ class _DropDeviceDepartures(_Normalise):
             kw.arg == "device" and ast.unparse(kw.value) == "self.device")]
         self.dropped["keyword"] += len(node.keywords) - len(keep)
         node.keywords = keep
+        if isinstance(node.func, ast.Name) and \
+                node.func.id == "local_devices":
+            node.func = ast.Attribute(
+                value=ast.Name(id="jax", ctx=ast.Load()), attr="devices",
+                ctx=ast.Load())
+            self.dropped["mesh"] += 1
         return node
 
     def visit_ImportFrom(self, node):
@@ -749,6 +860,13 @@ class _DropDeviceDepartures(_Normalise):
                 [a.name for a in node.names] == ["resolve_device"]:
             self.dropped["import"] += 1
             return None
+        if node.module == self.MESH:
+            names = [a.name for a in node.names]
+            self.dropped["mesh"] += 1
+            if names == ["local_devices"]:
+                return ast.Import(names=[ast.alias(name="jax")])
+            node.module = "jax.sharding"
+            return node
         for alias in node.names:
             if alias.name == "cuda_kernels":
                 alias.name = "pallas_kernels"
@@ -762,55 +880,27 @@ class _DropDeviceDepartures(_Normalise):
         return node
 
 
-def _is_a10_raise(node) -> bool:
-    return (isinstance(node, ast.Raise)
-            and "ROADMAP A10" in ast.unparse(node.exc))
-
-
-def _graft_a10_raises(port, ref) -> list:
-    """Where a statement list of the port ends in a ``raise`` naming A10,
-    put that raise in place of the reference's statements from the same
-    position on (the multi-device code the port leaves for A10); return
-    the names of the functions so grafted."""
-    grafted = []
-
-    def walk(pbody, rbody, fn):
-        for i, (ps, rs) in enumerate(zip(pbody, rbody)):
-            if _is_a10_raise(ps) and i == len(pbody) - 1:
-                rbody[i:] = [ps]
-                grafted.append(fn)
-                return
-            if type(ps) is not type(rs):
-                continue
-            name = getattr(ps, "name", fn) if isinstance(
-                ps, (ast.FunctionDef, ast.AsyncFunctionDef,
-                     ast.ClassDef)) else fn
-            for field in ("body", "orelse", "finalbody"):
-                if isinstance(getattr(ps, field, None), list):
-                    walk(getattr(ps, field), getattr(rs, field), name)
-
-    walk(port.body, ref.body, None)
-    return grafted
-
-
-@pytest.mark.parametrize("rel,cls,dropped,grafted", [
+@pytest.mark.parametrize("rel,cls,dropped", [
     ("osd/daemon.py", "OSDDaemon",
-     {"param": 1, "assign": 1, "keyword": 2, "import": 1, "variant": 2},
-     ["_resident_cache", "_ec_mesh", "_host_coalescer"]),
+     {"param": 1, "assign": 1, "keyword": 4, "import": 1, "variant": 2,
+      "mesh": 3}),
     ("vstart.py", "DevCluster",
-     {"param": 1, "assign": 1, "keyword": 1, "import": 0, "variant": 0}, []),
+     {"param": 1, "assign": 1, "keyword": 1, "import": 0, "variant": 0,
+      "mesh": 0}),
 ])
 def test_daemon_and_vstart_equal_their_references_but_for_the_device(
-        rel, cls, dropped, grafted):
+        rel, cls, dropped):
     """osd/daemon.py and vstart.py are their references but for the
     departures ROADMAP Queue C lists: the ``device`` keyword and its uses,
-    the encode variant set through ``cuda_kernels``, and the daemon's three
-    multi-device branches raising NotImplementedError naming A10."""
+    the encode variant set through ``cuda_kernels``, and the daemon's
+    device pool and resident-cache sharding from the port's mesh
+    (``local_devices(device=self.device)``, ``NamedSharding``,
+    ``PartitionSpec``) in place of ``jax.devices()`` and
+    ``jax.sharding``."""
     drop = _DropDeviceDepartures(cls)
     port = drop.visit(ast.parse((REPO / "ceph_tpu_torch" / rel).read_text()))
     ref = _Normalise().visit(ast.parse((REPO / "ceph_tpu" / rel).read_text()))
     assert drop.dropped == dropped
-    assert _graft_a10_raises(port, ref) == grafted
     assert ast.dump(port) == ast.dump(ref)
     assert _normalised(REPO / "ceph_tpu_torch" / rel) != \
         _normalised(REPO / "ceph_tpu" / rel)

@@ -633,8 +633,9 @@ async def _stats_commands(p):
 def test_ec_mesh_stats_over_the_wire():
     """``ec_mesh_stats`` names the single-device plane for every primary EC
     PG, with the same plane counters and launch buckets on both packages
-    (the port's ECBackend carries the JAX backend's plane attributes, its
-    multi-device planes absent)."""
+    (the port's ECBackend carries the JAX backend's plane attributes; the
+    mesh options are off here, tests/test_torch_mesh_coalesce.py turns
+    them on)."""
     out = on_each_package(_stats_commands)
     assert out["ceph_tpu_torch"] == out["ceph_tpu"]
     planes = [pg["plane"] for osd in out["ceph_tpu"].values()
