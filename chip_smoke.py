@@ -173,8 +173,29 @@ and, phase by phase, raising on any failure:
    any difference, if B1 or B3 was not launched, if a batch axis does not
    split over all 8 slots, or if the phase outran its budget (120 s); its
    launches join the ``kernels`` line's counts;
-9. prints the ``kernels`` JSON line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+9. runs the manager (``mgr_phase``, wave (h)) with the counts set to 0: 1
+   port mon and 12 port OSD daemons (one per CRUSH host, on the card) on
+   MemStores with the resident shard cache and the background deep scrub,
+   the 8+4 pool of 16 PGs, and a port mgr with its dashboard, the SLO
+   targets of a 150 ms put p99 over a 1.5 s window and the QoS
+   controller on.  Serve: 64 concurrent 4 MiB writes read back exactly, a seeded
+   closed-loop ``LoadGen`` of one client in ``bench.py --serve``'s shape
+   with zero errors, ``osd unset noscrub`` and one batched sweep of every
+   object;
+   judge: the digest's utilization section from the card's launches
+   (device GiB/s, its share of ``ec_hbm_peak_gibps``, launch seconds,
+   coalescer occupancy and waits, resident hit rate) beside the daemons'
+   summed ``ec_launch_bytes`` and B1's and B2's launches; scrape: the
+   mgr's Prometheus text and the dashboard's ``/api/status``, ``/api/slo``
+   and ``/metrics`` over 127.0.0.1 carry the utilization and burn gauges,
+   and the TSDB their series; defend: a delayed ``osd.sub_op`` raises
+   SLO_VIOLATION through the mgr into the mon's health and moves the QoS
+   controller, and both clear once the failpoint does.  One "[mgr]" JSON
+   line per step; it fails on any difference, if B1 or B2 was not
+   launched, or if the phase outran its budget (120 s); its launches join
+   the ``kernels`` line's counts;
+10. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without CUDA, or when the package is
 not beside it.
@@ -2117,6 +2138,382 @@ def mesh_phase(dev, *, stripes: int = STRIPES,
     return {"steps": steps, "seconds": time.perf_counter() - t_phase}
 
 
+# Wave (h): a port mgr watches, judges and defends the 8+4 pool that twelve
+# port OSD daemons serve.  The round-10 recipe's SLO targets (a small put
+# p99, a short window, one eval to raise or clear) with the QoS controller
+# on; the scale profile's liveness timers.  The put target is 150 ms, not
+# the recipe's 50: healthy 4 KiB writes through twelve daemons in one
+# process took a p99 over 50 ms on a slow host (the check never cleared),
+# and the failpoint's 0.3 s delay burns either.
+MGR_PG_NUM = 16
+MGR_BUDGET_S = 120.0
+MGR_WAIT_S = 60.0
+MGR_LOADGEN_OPS = 200
+MGR_FP_DELAY_S = 0.3
+MGR_SMALL_BYTES = 4 << 10
+MGR_OVERRIDES = {
+    "mon_osd_down_out_interval": 300.0,
+    "osd_ec_resident": True,
+    "osd_scrub_interval": CLUSTER_SCRUB_INTERVAL_S,
+    "slo_put_p99_ms": 150.0, "slo_window": 1.5,
+    "slo_raise_evals": 1, "slo_clear_evals": 1,
+    "qos_enable": True, "qos_ramp_ops": 64.0,
+}
+MGR_UTIL = ("device_gibps", "roofline_pct", "launch_bytes", "launch_seconds",
+            "coalesce_occupancy", "coalesce_launches", "coalesce_wait_p50_us",
+            "coalesce_wait_p99_us", "resident_hit_rate", "window_s")
+MGR_GAUGES = ("ceph_util_device_gibps", "ceph_util_roofline_pct",
+              "ceph_util_coalesce_occupancy", "ceph_util_resident_hit_rate",
+              "ceph_slo_burn_rate")
+
+
+async def _http_get(host: str, port: int, path: str):
+    """One GET against the dashboard: (status, body)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(f"GET {path} HTTP/1.1\r\nhost: {host}\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), body
+
+
+async def mgr_wave(ns, *, pg_num: int = MGR_PG_NUM,
+                   objects: int = CLUSTER_OBJECTS,
+                   object_bytes: int = CLUSTER_OBJECT_BYTES,
+                   loadgen_ops: int = MGR_LOADGEN_OPS, seed: int = SEED,
+                   note=log) -> dict:
+    """Wave (h) over one package's dev cluster ``ns`` (as ``cluster_wave``'s,
+    plus ``fp``, the failpoint module, and ``loadgen``).
+
+    1 mon and 12 OSD daemons (one per CRUSH host) on MemStores with the
+    resident shard cache and the background deep scrub (held off by ``osd
+    set noscrub``), the 8+4 profile with choose tries 100, a pool of
+    ``pg_num`` PGs, and ``start_mgr(dashboard=True)`` with
+    ``MGR_OVERRIDES``.  Four steps, an "[mgr]" JSON line each:
+
+    1. serve: ``objects`` concurrent writes of ``object_bytes`` through a
+       ``Rados``, each read back exactly; a seeded closed-loop ``LoadGen``
+       over ``RadosBackend`` in ``bench.py --serve``'s shape (48 keys,
+       tenant class gold, the default size mix, reads 0.7, zipf 1.1) with
+       one client, ending with zero errors and every key read back as the
+       generator wrote it; ``osd unset noscrub`` and one batched sweep
+       verifying every object;
+    2. judge: the digest's ``utilization`` section with launch bytes and
+       coalesced launches in its window (the digest with the most launch
+       bytes seen while the mgr reported), beside the daemons' summed
+       ``ec_launch_bytes`` and the wave's kernel launches so far;
+    3. scrape: ``mgr.prometheus_text()``, and ``/api/status``, ``/api/slo``
+       and ``/metrics`` from the dashboard on 127.0.0.1: the scrape and
+       ``/metrics`` carry the utilization and burn gauges, ``/api/slo``
+       the utilization section, and the TSDB module holds their series;
+    4. defend: once health is clear of SLO_VIOLATION, ``osd.sub_op``
+       delayed ``MGR_FP_DELAY_S`` and small writes until the mon's health
+       carries SLO_VIOLATION through the mgr and the QoS controller has
+       retuned; the failpoint cleared, small writes until the check
+       clears; then the QoS controller's position back at its ceilings.
+
+    Raises on any failure; returns each step's record."""
+    import asyncio
+
+    import numpy as np
+
+    liveness = {key: ns.SCALE_TEST_OVERRIDES[key] for key in CLUSTER_LIVENESS}
+    rng = np.random.default_rng(seed)
+    steps: dict[str, dict] = {}
+    loop = asyncio.get_running_loop()
+
+    async def until(cond, what, timeout=MGR_WAIT_S, every=0.1):
+        deadline = loop.time() + timeout
+        while True:
+            got = cond()
+            if asyncio.iscoroutine(got):
+                got = await got
+            if got:
+                return got
+            if loop.time() > deadline:
+                raise AssertionError(f"no {what} in {timeout:.0f} s")
+            await asyncio.sleep(every)
+
+    def record(step, t0, **kw):
+        ns.sync()
+        rec = {"step": step, "wall_s": time.perf_counter() - t0, **kw}
+        steps[step] = rec
+        note(f"[mgr] {json.dumps(rec)}")
+        return rec
+
+    def summed(key):
+        return sum(o.perf.value(key) for o in cluster.osds.values())
+
+    async def command(prefix, **kw):
+        r = await rados.mon_command(prefix, timeout=MGR_WAIT_S, **kw)
+        if r["rc"] != 0:
+            raise AssertionError(f"{prefix}: {r}")
+        return r
+
+    async def checks():
+        return (await command("health detail"))["data"]["checks"]
+
+    t_phase = time.perf_counter()
+    ns.reset_local_namespace()
+    ns.fp.fp_clear()
+    cluster = ns.DevCluster(n_mons=1, n_osds=CLUSTER_OSDS, osds_per_host=1,
+                            overrides={**liveness, **MGR_OVERRIDES})
+    rados = watcher = None
+    peak: dict = {}
+
+    async def watch_digests(mgr):
+        """Keep the digest with the most launch bytes in its window."""
+        while True:
+            u = (mgr.last_digest or {}).get("utilization") or {}
+            if u.get("launch_bytes", 0) > peak.get("launch_bytes", 0) and \
+                    u.get("coalesce_launches", 0) > 0:
+                peak.clear()
+                peak.update(u)
+            await asyncio.sleep(0.05)
+
+    try:
+        t0 = time.perf_counter()
+        await cluster.start()
+        rados = await cluster.client()
+        await command("osd set", flag="noscrub")
+        text = ns.compiler.decompile(rados.monc.osdmap.crush)
+        tunable = "tunable choose_total_tries 50\n"
+        await command("osd setcrushmap", map=text.replace(
+            tunable, f"tunable choose_total_tries {MAP_CHOOSE_TRIES}\n"))
+        await command("osd erasure-code-profile set", name="ec84",
+                      profile=dict(CLUSTER_PROFILE))
+        pool_id = await rados.pool_create(
+            "mgr", pool_type="erasure", erasure_code_profile="ec84",
+            pg_num=pg_num)
+        await command("osd pool set", pool="mgr", var="pg_autoscale_mode",
+                      val="off")
+
+        def active():
+            return sum(1 for o in cluster.osds.values()
+                       for pgid, pg in o.pgs.items()
+                       if pgid.pool == pool_id and pg.is_primary
+                       and pg.state == "active") == pg_num
+
+        await until(active, "active PGs")
+        mgr = await cluster.start_mgr(dashboard=True)
+        mgr.modules["balancer"].active = False
+        watcher = loop.create_task(watch_digests(mgr))
+        record("boot", t0, mons=len(cluster.mons), osds=len(cluster.osds),
+               pg_num=pg_num, dashboard=[mgr.dashboard.host,
+                                         mgr.dashboard.port])
+
+        # 1. serve
+        t0 = time.perf_counter()
+        k0 = ns.launches()
+        io = await rados.open_ioctx("mgr")
+        datas = {f"mgr-{i}": rng.bytes(object_bytes) for i in range(objects)}
+        await asyncio.gather(*(io.write_full(o, d) for o, d in datas.items()))
+        w_s = time.perf_counter() - t0
+        got = await asyncio.gather(*(io.read(o) for o in datas))
+        bad = [o for o, g in zip(datas, got) if g != datas[o]]
+        if bad:
+            raise AssertionError(f"serve: {len(bad)} objects differ")
+        # one client: an EC read racing an overwrite of its own object can
+        # fail in both packages (ROADMAP Queue C)
+        lg = ns.loadgen
+        gen = lg.LoadGen(lg.RadosBackend(io, prefix="serve"), seed=seed,
+                         mode="closed", clients=1, total_ops=loadgen_ops,
+                         n_keys=48, tenant_class="gold", read_fraction=0.7,
+                         zipf_s=1.1)
+        await gen.populate()
+        res = await gen.run()
+        if res["errors"] or res["ops"] != loadgen_ops:
+            raise AssertionError(f"serve: load generator {res}")
+        for key, size in gen.key_sizes().items():
+            if await io.read(f"serve-{key}") != lg._payload(key, size):
+                raise AssertionError(f"serve: key {key} differs")
+        t1 = time.perf_counter()
+        await command("osd unset", flag="noscrub")
+        scrub = {}
+        n_objects = objects + len(gen.key_sizes())
+
+        async def swept():
+            scrub.clear()
+            for osd_id in cluster.osds:
+                stats = await rados.osd_daemon_command(
+                    osd_id, "ec_scrub_stats", timeout=MGR_WAIT_S)
+                for key in ("sweeps", "objects", "errors"):
+                    scrub[key] = scrub.get(key, 0) + \
+                        stats["engine"].get(key, 0)
+            return scrub["objects"] >= n_objects
+
+        await until(swept, "background scrub sweep", every=0.25)
+        if scrub["errors"]:
+            raise AssertionError(f"the scrub found {scrub['errors']} errors")
+        # no more sweeps: the defend step's window holds client writes only
+        await command("osd set", flag="noscrub")
+        k1 = ns.launches()
+        record("serve", t0, write_s=w_s,
+               write_gib_s=objects * object_bytes / w_s / 2**30,
+               loadgen={k: res[k] for k in (
+                   "ops", "errors", "puts", "gets", "bytes_put", "bytes_get",
+                   "wall_s", "ops_per_s", "p50_ms", "p99_ms", "p999_ms")},
+               scrub_s=time.perf_counter() - t1, scrub=dict(scrub),
+               kernel_launches={k: k1[k] - k0.get(k, 0) for k in k1
+                                if k1[k] != k0.get(k, 0)})
+
+        # 2. judge
+        t0 = time.perf_counter()
+        await until(lambda: peak, "a utilization window with launches")
+        util = {key: peak.get(key) for key in MGR_UTIL}
+        k2 = ns.launches()
+        record("judge", t0, utilization=util,
+               ec_launch_bytes=summed("ec_launch_bytes"),
+               ec_launch_s=(summed("ec_encode_launch_us")
+                            + summed("ec_decode_launch_us")) / 1e6,
+               peak_gibps=float(mgr.conf["ec_hbm_peak_gibps"]),
+               kernel_launches={k: v for k, v in k2.items() if v})
+        for key in MGR_UTIL:
+            if not isinstance(util[key], (int, float)) or \
+                    not np.isfinite(util[key]):
+                raise AssertionError(f"judge: utilization {key} {util}")
+
+        # 3. scrape
+        t0 = time.perf_counter()
+        text = mgr.prometheus_text(await mgr.collect(),
+                                   mgr.prometheus_extra())
+        host, port = mgr.dashboard.host, mgr.dashboard.port
+        codes, bodies = {}, {}
+        for path in ("/api/status", "/api/slo", "/metrics"):
+            codes[path], bodies[path] = await _http_get(host, port, path)
+        status = json.loads(bodies["/api/status"])
+        slo = json.loads(bodies["/api/slo"])
+        metrics = bodies["/metrics"].decode()
+        missing = [(where, g) for where, body in (("scrape", text),
+                                                  ("/metrics", metrics))
+                   for g in MGR_GAUGES if f"\n{g}" not in f"\n{body}"]
+        series = mgr.ts_query()["names"]
+        want = ["util.device_gibps", "util.roofline_pct",
+                "util.launch_bytes", "slo.put_p99_ms.burn"]
+        record("scrape", t0, codes=codes, scrape_lines=len(
+            text.splitlines()), metrics_lines=len(metrics.splitlines()),
+            status_pgs=status.get("pgmap", {}).get("num_pgs"),
+            slo_keys=sorted(slo), utilization_keys=len(slo.get(
+                "utilization", {})), tsdb_series=len(series),
+            missing=missing)
+        if set(codes.values()) != {200} or missing:
+            raise AssertionError(f"scrape: {codes} missing {missing}")
+        if not slo.get("utilization") or status.get("pgmap", {}).get(
+                "num_pgs") != pg_num:
+            raise AssertionError(f"scrape: /api/slo {sorted(slo)} "
+                                 f"/api/status {status.get('pgmap')}")
+        if [s for s in want if s not in series]:
+            raise AssertionError(f"scrape: tsdb lacks "
+                                 f"{[s for s in want if s not in series]}")
+
+        # 4. defend
+        t0 = time.perf_counter()
+
+        async def clear():
+            return "SLO_VIOLATION" not in await checks()
+
+        await until(clear, "health clear of SLO_VIOLATION")
+
+        def qos():
+            return (mgr.last_digest or {}).get("qos") or {}
+
+        before = dict(qos())
+        ns.fp.fp_set("osd.sub_op", "delay", delay=MGR_FP_DELAY_S)
+        small = rng.bytes(MGR_SMALL_BYTES)
+        n = 0
+        try:
+            async def raised():
+                nonlocal n
+                await io.write_full(f"slow-{n}", small)
+                n += 1
+                return (await checks()).get("SLO_VIOLATION")
+
+            check = await until(raised, "SLO_VIOLATION", every=0.02)
+            t_raise = time.perf_counter() - t0
+
+            async def retuned():
+                nonlocal n
+                await io.write_full(f"slow-{n}", small)
+                n += 1
+                q = qos()
+                return q.get("burning") and \
+                    q.get("retunes", 0) > before.get("retunes", 0) and q
+
+            moved = dict(await until(retuned, "a QoS retune", every=0.02))
+        finally:
+            ns.fp.fp_clear("osd.sub_op")
+        t1 = time.perf_counter()
+
+        async def cleared():
+            await io.write_full("fast", small)
+            return await clear()
+
+        await until(cleared, "SLO_VIOLATION to clear", every=0.02)
+        t_clear = time.perf_counter() - t1
+
+        def ceiled():
+            q = qos()
+            return not q.get("burning", True) and all(
+                q.get(f"{c}_limit") == q.get(f"{c}_ceiling")
+                for c in ("recovery", "backfill", "scrub", "replication"))
+
+        await until(ceiled, "the QoS controller back at its ceilings")
+        after = dict(qos())
+        record("defend", t0, raise_s=t_raise, clear_s=t_clear,
+               slow_writes=n, check={"severity": check["severity"],
+                                     "message": check["message"]},
+               qos_before={k: before.get(k) for k in (
+                   "retunes", "recovery_limit", "burning")},
+               qos_moved={k: moved.get(k) for k in (
+                   "retunes", "recovery_limit", "scrub_limit", "burning",
+                   "burn")},
+               qos_after={k: after.get(k) for k in (
+                   "retunes", "recovery_limit", "burning")})
+        if check["severity"] != "HEALTH_WARN" or \
+                "put_p99_ms" not in check["message"]:
+            raise AssertionError(f"defend: SLO_VIOLATION {check}")
+        if not moved["recovery_limit"] < before.get(
+                "recovery_ceiling", moved["recovery_limit"] + 1):
+            raise AssertionError(f"defend: the QoS controller {moved}")
+    finally:
+        if watcher is not None:
+            watcher.cancel()
+        ns.fp.fp_clear()
+        if rados is not None:
+            await rados.shutdown()
+        await cluster.stop()
+        ns.reset_local_namespace()
+    return {"steps": steps, "seconds": time.perf_counter() - t_phase}
+
+
+def mgr_phase(dev) -> dict:
+    """Wave (h) on the port's dev cluster, its OSD daemons on the CUDA
+    device ``dev``."""
+    import asyncio
+    import functools
+    from types import SimpleNamespace
+
+    import torch
+
+    from ceph_tpu_torch import vstart
+    from ceph_tpu_torch.common import failpoint
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.msg import reset_local_namespace
+    from ceph_tpu_torch.placement import compiler
+    from ceph_tpu_torch.testing import loadgen
+
+    ns = SimpleNamespace(
+        DevCluster=functools.partial(vstart.DevCluster, device=dev),
+        SCALE_TEST_OVERRIDES=vstart.SCALE_TEST_OVERRIDES,
+        reset_local_namespace=reset_local_namespace, compiler=compiler,
+        fp=failpoint, loadgen=loadgen, launches=lambda: dict(ck.LAUNCHES),
+        sync=torch.cuda.synchronize)
+    return asyncio.run(mgr_wave(ns))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3347,7 +3744,26 @@ def main() -> int:
     if mesh["seconds"] > MESH_BUDGET_S:
         raise AssertionError(f"the mesh phase took {mesh['seconds']:.1f} s")
 
-    # -- 9. result lines ------------------------------------------------------
+    # -- 9. the manager, counted ---------------------------------------------
+    # Wave (h): a port mgr watches, judges and defends the 8+4 pool that
+    # twelve OSD daemons serve (mgr_phase).  B1 carries the primaries'
+    # encodes and the scrub's re-encode, B2 the scrub's CRC.
+    ck.reset_launch_counts()
+    mgr_run = mgr_phase(dev)
+    mgr_launches = counts()
+    log(f"[main path: mgr] launches {mgr_launches}; "
+        f"{len(mgr_run['steps'])} steps in {mgr_run['seconds']:.2f} s "
+        f"(budget {MGR_BUDGET_S:.0f} s)")
+    for name in ("gf2_apply_words", "gf2_apply_u8"):
+        if mgr_launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"mgr main path")
+    for name in ck.LAUNCHES:
+        main_launches[name] += mgr_launches[name]
+    if mgr_run["seconds"] > MGR_BUDGET_S:
+        raise AssertionError(f"the mgr phase took {mgr_run['seconds']:.1f} s")
+
+    # -- 10. result lines -----------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",
