@@ -194,7 +194,28 @@ and, phase by phase, raising on any failure:
    line per step; it fails on any difference, if B1 or B2 was not
    launched, or if the phase outran its budget (120 s); its launches join
    the ``kernels`` line's counts;
-10. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+10. runs the gateway (``rgw_phase``, wave (i)) with the counts set to 0:
+    1 port mon and 12 port OSD daemons (one per CRUSH host, on the card)
+    on MemStores with the resident shard cache, a port mgr with its
+    dashboard, and the port's S3 gateway from ``start_rgw(cold_pool=
+    "rgw.cold", ec_k=8, ec_m=4)``: a replicated hot pool and the 8+4 COLD
+    class at 8 PGs.  Every request SigV4-signed over 127.0.0.1.  Put-cold:
+    64 concurrent 4 MiB PUTs with ``x-amz-storage-class: COLD``;
+    put-hot + transition: 64 x 4 MiB through the load generator's
+    ``S3Backend`` and a 64 MiB multipart upload in 8 MiB parts into the
+    hot pool, a lifecycle rule (30 days to COLD) and ``lc_process`` 31 days
+    on, every hot key moved; read-back: every GET exact (sha256, ETag,
+    storage class), the dashboard's placement and lifecycle panels;
+    degraded: one OSD killed and marked down, every GET exact again,
+    revived, PGs clean; load: a seeded closed-loop ``LoadGen`` of one
+    client over ``S3Backend`` with zero errors; scrub: one batched sweep
+    verifying every cold object; gc: 16 cold objects deleted and reaped by
+    ``gc_process``, the cold pool down by exactly their RADOS objects.  One
+    "[rgw]" JSON line per step; it fails on any difference, if B1 was not
+    launched in the put-cold, transition and degraded steps, or if the
+    phase outran its budget (120 s); its launches join the ``kernels``
+    line's counts;
+11. prints the ``kernels`` JSON line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without CUDA, or when the package is
@@ -2167,12 +2188,15 @@ MGR_GAUGES = ("ceph_util_device_gibps", "ceph_util_roofline_pct",
               "ceph_slo_burn_rate")
 
 
-async def _http_get(host: str, port: int, path: str):
+async def _http_get(host: str, port: int, path: str,
+                    token: str | None = None):
     """One GET against the dashboard: (status, body)."""
     import asyncio
 
     reader, writer = await asyncio.open_connection(host, port)
-    writer.write(f"GET {path} HTTP/1.1\r\nhost: {host}\r\n\r\n".encode())
+    auth = f"authorization: Bearer {token}\r\n" if token else ""
+    writer.write(f"GET {path} HTTP/1.1\r\nhost: {host}\r\n{auth}\r\n"
+                 .encode())
     await writer.drain()
     raw = await reader.read()
     writer.close()
@@ -2512,6 +2536,448 @@ def mgr_phase(dev) -> dict:
         fp=failpoint, loadgen=loadgen, launches=lambda: dict(ck.LAUNCHES),
         sync=torch.cuda.synchronize)
     return asyncio.run(mgr_wave(ns))
+
+
+# Wave (i): S3 traffic through the port's gateway, tiered into the 8+4 EC
+# cold pool that twelve port OSD daemons serve.  The gateway's zone
+# placement provisions the cold class at ensure_pool's 8 PGs with the
+# headline jax_rs profile over OSD failure domains; the hot pool is
+# replicated.  GC entries wait an hour, so deletes ride the GC queue.
+RGW_BUDGET_S = 120.0
+RGW_WAIT_S = 60.0
+RGW_OBJECTS = 64
+RGW_OBJECT_BYTES = 4 << 20
+RGW_MULTIPART_BYTES = 64 << 20
+RGW_PART_BYTES = 8 << 20
+RGW_LOADGEN_OPS = 200
+RGW_DELETES = 16
+RGW_TRANSITION_DAYS = 30
+RGW_TOKEN = "wave-i"
+RGW_OVERRIDES = {
+    "mon_osd_down_out_interval": 300.0,
+    "osd_ec_resident": True,
+    "osd_scrub_interval": CLUSTER_SCRUB_INTERVAL_S,
+    "rgw_gc_obj_min_wait": 3600.0,
+}
+B1, B2 = "gf2_apply_words", "gf2_apply_u8"
+
+
+async def _s3(rgw_http, host: str, port: int, ak: str, sk: str,
+              method: str, path: str, body: bytes = b"",
+              headers: dict | None = None):
+    """One SigV4-signed S3 request, signed with the gateway's own
+    ``_Request``/``sigv4_sign`` as the load generator's S3 client signs:
+    (status, headers, body)."""
+    import asyncio
+    import hashlib
+
+    hdrs = {"host": f"{host}:{port}",
+            "x-amz-date": time.strftime("%Y%m%dT%H%M%SZ", time.gmtime()),
+            "x-amz-content-sha256": hashlib.sha256(body).hexdigest(),
+            **(headers or {})}
+    hdrs["authorization"] = rgw_http.sigv4_sign(
+        rgw_http._Request(method, path, hdrs, body), ak, sk)
+    hdrs["content-length"] = str(len(body))
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        lines = [f"{method} {path} HTTP/1.1"]
+        lines += [f"{k}: {v}" for k, v in hdrs.items()]
+        lines += ["connection: close", "", ""]
+        writer.write("\r\n".join(lines).encode() + body)
+        await writer.drain()
+        raw = await reader.read()
+    finally:
+        writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    head_lines = head.decode().split("\r\n")
+    out = {}
+    for line in head_lines[1:]:
+        k, _, v = line.partition(":")
+        out[k.strip().lower()] = v.strip()
+    return int(head_lines[0].split(" ")[1]), out, payload
+
+
+async def rgw_wave(ns, *, n_osds: int = CLUSTER_OSDS, ec_k: int = 8,
+                   ec_m: int = 4, objects: int = RGW_OBJECTS,
+                   object_bytes: int = RGW_OBJECT_BYTES,
+                   multipart_bytes: int = RGW_MULTIPART_BYTES,
+                   part_bytes: int = RGW_PART_BYTES,
+                   loadgen_ops: int = RGW_LOADGEN_OPS,
+                   deletes: int = RGW_DELETES, victim: int = CLUSTER_VICTIM,
+                   need: tuple = (B1,), seed: int = SEED,
+                   note=log) -> dict:
+    """Wave (i) over one package's dev cluster ``ns`` (as ``mgr_wave``'s,
+    plus ``rgw_http``, the gateway's front-end module).
+
+    1 mon and ``n_osds`` OSD daemons (one per CRUSH host, MemStores, the
+    resident shard cache, the background deep scrub held off by ``osd set
+    noscrub``), CRUSH's choose tries at 100, a mgr with its dashboard, and
+    ``start_rgw(cold_pool="rgw.cold", ec_k=, ec_m=)``: a replicated hot
+    pool ``rgw`` and the cold class ``COLD`` on an erasure-coded pool of 8
+    PGs.  One user; every request SigV4-signed over 127.0.0.1.  Seven
+    steps, an "[rgw]" JSON line each (wall seconds, bytes, GiB/s, kernel
+    launches):
+
+    1. put-cold: ``objects`` concurrent PUTs of ``object_bytes`` with
+       ``x-amz-storage-class: COLD`` into bucket ``cold``;
+    2. put-hot + transition: ``objects`` PUTs through the load generator's
+       ``S3Backend`` into bucket ``hot`` (STANDARD, the hot pool), one
+       multipart upload of ``multipart_bytes`` in ``part_bytes`` parts, a
+       lifecycle rule moving everything to COLD after
+       ``RGW_TRANSITION_DAYS`` days, then ``lc_process`` a day later:
+       every hot key reported ``key->COLD``;
+    3. read-back: every object GET over HTTP, body (sha256), ETag and
+       storage class exact; the dashboard's ``/api/rgw/placement`` and
+       ``/api/rgw/lifecycle`` name the cold pool and the rule;
+    4. degraded: OSD ``victim`` killed and marked down, every object read
+       again exactly; revived, every primary PG clean;
+    5. load: a seeded closed-loop ``LoadGen`` of one client over
+       ``S3Backend`` in ``bench.py --serve``'s shape, zero errors, every
+       key read back as generated;
+    6. scrub: ``osd unset noscrub``, one batched sweep of the cold pool
+       verifying every cold object, zero errors;
+    7. gc: ``deletes`` cold objects deleted, ``gc_process`` past
+       ``rgw_gc_obj_min_wait``: the cold pool loses exactly their RADOS
+       objects.
+
+    The kernels of ``need`` must launch in steps 1, 2 and 4.  Raises on
+    any failure; returns each step's record."""
+    import asyncio
+    import hashlib
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    liveness = {key: ns.SCALE_TEST_OVERRIDES[key] for key in CLUSTER_LIVENESS}
+    rng = np.random.default_rng(seed)
+    steps: dict[str, dict] = {}
+    loop = asyncio.get_running_loop()
+    s3ns = {"s3": "http://s3.amazonaws.com/doc/2006-03-01/"}
+
+    async def until(cond, what, timeout=RGW_WAIT_S, every=0.1):
+        deadline = loop.time() + timeout
+        while True:
+            got = cond()
+            if asyncio.iscoroutine(got):
+                got = await got
+            if got:
+                return got
+            if loop.time() > deadline:
+                raise AssertionError(f"no {what} in {timeout:.0f} s")
+            await asyncio.sleep(every)
+
+    def record(step, t0, k0, nbytes=0, launched=(), **kw):
+        ns.sync()
+        wall = time.perf_counter() - t0
+        k1 = ns.launches()
+        delta = {k: k1[k] - k0.get(k, 0) for k in k1
+                 if k1[k] != k0.get(k, 0)}
+        rec = {"step": step, "wall_s": wall, "bytes": nbytes,
+               "gib_s": nbytes / wall / 2**30 if nbytes else 0.0,
+               "b1_launches": delta.get(B1, 0),
+               "b2_launches": delta.get(B2, 0), **kw,
+               "kernel_launches": delta}
+        steps[step] = rec
+        note(f"[rgw] {json.dumps(rec)}")
+        missing = [k for k in launched if not delta.get(k)]
+        if missing:
+            raise AssertionError(f"{step}: {missing} not launched")
+        return rec
+
+    async def command(prefix, **kw):
+        r = await rados.mon_command(prefix, timeout=RGW_WAIT_S, **kw)
+        if r["rc"] != 0:
+            raise AssertionError(f"{prefix}: {r}")
+        return r
+
+    async def s3(method, path, body=b"", headers=None, ok=(200,)):
+        st, hdrs, out = await _s3(ns.rgw_http, fe.host, fe.port,
+                                  user["access_key"], user["secret_key"],
+                                  method, path, body, headers)
+        if st not in ok:
+            raise AssertionError(f"{method} {path}: HTTP {st} {out[:200]}")
+        return hdrs, out
+
+    async def cold_objects():
+        return len(await cold_io.list_objects())
+
+    t_phase = time.perf_counter()
+    ns.reset_local_namespace()
+    cluster = ns.DevCluster(n_mons=1, n_osds=n_osds, osds_per_host=1,
+                            overrides={**liveness, **RGW_OVERRIDES})
+    rados = None
+    try:
+        t0, k0 = time.perf_counter(), ns.launches()
+        await cluster.start()
+        rados = await cluster.client()
+        await command("osd set", flag="noscrub")
+        text = ns.compiler.decompile(rados.monc.osdmap.crush)
+        tunable = "tunable choose_total_tries 50\n"
+        await command("osd setcrushmap", map=text.replace(
+            tunable, f"tunable choose_total_tries {MAP_CHOOSE_TRIES}\n"))
+        mgr = await cluster.start_mgr(dashboard=True,
+                                      dashboard_token=RGW_TOKEN)
+        mgr.modules["balancer"].active = False
+        fe, users = await cluster.start_rgw(cold_pool="rgw.cold",
+                                            ec_k=ec_k, ec_m=ec_m)
+        user = await users.create("wave")
+        cold_io = await rados.open_ioctx("rgw.cold")
+        cold_id = next(pid for pid, p in rados.monc.osdmap.pools.items()
+                       if p.name == "rgw.cold")
+        cold_pg_num = rados.monc.osdmap.pools[cold_id].pg_num
+
+        def active():
+            return sum(1 for o in cluster.osds.values()
+                       for pgid, pg in o.pgs.items()
+                       if pgid.pool == cold_id and pg.is_primary
+                       and pg.state == "active") == cold_pg_num
+
+        await until(active, "active cold PGs")
+        await s3("PUT", "/cold")
+        await s3("PUT", "/hot")
+        record("boot", t0, k0, mons=len(cluster.mons),
+               osds=len(cluster.osds), cold_pg_num=cold_pg_num,
+               profile={"k": ec_k, "m": ec_m},
+               endpoint=[fe.host, fe.port],
+               dashboard=[mgr.dashboard.host, mgr.dashboard.port])
+        want: dict[tuple, tuple] = {}      # (bucket, key) -> (sha, etag)
+
+        # 1. put-cold
+        t0, k0 = time.perf_counter(), ns.launches()
+        cold = {f"obj-{i:03d}": rng.bytes(object_bytes)
+                for i in range(objects)}
+        replies = await asyncio.gather(*(
+            s3("PUT", f"/cold/{k}", d, {"x-amz-storage-class": "COLD"})
+            for k, d in cold.items()))
+        for (k, d), (hdrs, _) in zip(cold.items(), replies):
+            etag = hashlib.md5(d).hexdigest()
+            if hdrs.get("etag", "").strip('"') != etag:
+                raise AssertionError(f"put-cold {k}: etag {hdrs}")
+            want[("cold", k)] = (hashlib.sha256(d).hexdigest(), etag)
+        n_cold = await cold_objects()
+        if n_cold != objects:
+            raise AssertionError(f"put-cold: {n_cold} cold objects")
+        record("put-cold", t0, k0, objects * object_bytes, launched=need,
+               cold_rados_objects=n_cold)
+
+        # 2. put-hot + transition
+        t0, k0 = time.perf_counter(), ns.launches()
+        hot = {f"obj-{i:03d}": rng.bytes(object_bytes)
+               for i in range(objects)}
+        be = ns.loadgen.S3Backend(fe.host, fe.port, user["access_key"],
+                                  user["secret_key"], bucket="hot")
+        await asyncio.gather(*(be.put(k, d) for k, d in hot.items()))
+        for k, d in hot.items():
+            want[("hot", k)] = (hashlib.sha256(d).hexdigest(),
+                                hashlib.md5(d).hexdigest())
+        k_hot = ns.launches()
+        hot_launches = {k: k_hot[k] - k0.get(k, 0) for k in k_hot
+                        if k_hot[k] != k0.get(k, 0)}
+        _, body = await s3("POST", "/hot/multi?uploads")
+        upload = ET.fromstring(body).findtext("s3:UploadId", None, s3ns)
+        parts = [rng.bytes(part_bytes)
+                 for _ in range(multipart_bytes // part_bytes)]
+        etags = [hdrs["etag"] for hdrs, _ in await asyncio.gather(*(
+            s3("PUT", f"/hot/multi?partNumber={i}&uploadId={upload}", part)
+            for i, part in enumerate(parts, 1)))]
+        done = "".join(f"<Part><PartNumber>{i}</PartNumber><ETag>{e}</ETag>"
+                       f"</Part>" for i, e in enumerate(etags, 1))
+        await s3("POST", f"/hot/multi?uploadId={upload}",
+                 f"<CompleteMultipartUpload>{done}"
+                 f"</CompleteMultipartUpload>".encode())
+        mp_etag = hashlib.md5(b"".join(
+            hashlib.md5(p).digest() for p in parts)).hexdigest() + \
+            f"-{len(parts)}"
+        want[("hot", "multi")] = (hashlib.sha256(b"".join(parts))
+                                  .hexdigest(), mp_etag)
+        t_put = time.perf_counter() - t0
+        rule = (f"<LifecycleConfiguration><Rule><ID>to-cold</ID>"
+                f"<Filter><Prefix></Prefix></Filter>"
+                f"<Status>Enabled</Status><Transition>"
+                f"<Days>{RGW_TRANSITION_DAYS}</Days>"
+                f"<StorageClass>COLD</StorageClass></Transition>"
+                f"</Rule></LifecycleConfiguration>").encode()
+        await s3("PUT", "/hot?lifecycle", rule)
+        t1, k1 = time.perf_counter(), ns.launches()
+        moved = await fe.rgw.lc_process(
+            now=time.time() + (RGW_TRANSITION_DAYS + 1) * 86400)
+        t_lc = time.perf_counter() - t1
+        k2 = ns.launches()
+        if sorted(moved.get("hot", [])) != sorted(
+                f"{k}->COLD" for k in [*hot, "multi"]) or \
+                set(moved) - {"hot", "cold"} or moved.get("cold"):
+            raise AssertionError(f"transition: {moved}")
+        n_cold = await cold_objects()
+        if n_cold != 2 * objects + len(parts):
+            raise AssertionError(f"transition: {n_cold} cold objects")
+        record("put-hot+transition", t0, k0,
+               (objects * object_bytes + multipart_bytes) * 2,
+               launched=need, put_s=t_put, lc_s=t_lc,
+               lc_gib_s=(objects * object_bytes + multipart_bytes)
+               / t_lc / 2**30, moved=len(moved["hot"]),
+               hot_put_launches=hot_launches,
+               lc_b1_launches=k2.get(B1, 0) - k1.get(B1, 0),
+               cold_rados_objects=n_cold)
+
+        # 3. read-back
+        async def read_back(step):
+            bad = []
+
+            async def one(bucket, key):
+                hdrs, body = await s3("GET", f"/{bucket}/{key}")
+                sha, etag = want[(bucket, key)]
+                if hashlib.sha256(body).hexdigest() != sha or \
+                        hdrs.get("etag", "").strip('"') != etag or \
+                        hdrs.get("x-amz-storage-class") != "COLD":
+                    bad.append((bucket, key, hdrs))
+                return len(body)
+
+            got = await asyncio.gather(*(one(b, k) for b, k in want))
+            if bad:
+                raise AssertionError(f"{step}: {len(bad)} objects differ, "
+                                     f"first {bad[0]}")
+            return sum(got)
+
+        t0, k0 = time.perf_counter(), ns.launches()
+        nbytes = await read_back("read-back")
+        dash = (mgr.dashboard.host, mgr.dashboard.port)
+        pst, pbody = await _http_get(*dash, "/api/rgw/placement", RGW_TOKEN)
+        lst, lbody = await _http_get(*dash, "/api/rgw/lifecycle?bucket=hot",
+                                     RGW_TOKEN)
+        placement = json.loads(pbody) if pst == 200 else []
+        lifecycle = json.loads(lbody) if lst == 200 else {}
+        cold_class = (placement[0]["storage_classes"].get("COLD", {})
+                      if placement else {})
+        rules = lifecycle.get("hot", [])
+        record("read-back", t0, k0, nbytes, objects_read=len(want),
+               dashboard={"placement": pst, "lifecycle": lst,
+                          "cold_pool": cold_class.get("pool"),
+                          "rules": [r.get("id") for r in rules]})
+        if cold_class.get("pool") != "rgw.cold" or [
+                (r.get("id"), r.get("transition_class")) for r in rules] \
+                != [("to-cold", "COLD")]:
+            raise AssertionError(f"dashboard: {placement} {lifecycle}")
+
+        # 4. degraded
+        t0, k0 = time.perf_counter(), ns.launches()
+        await cluster.kill_osd(victim)
+        await command("osd down", ids=[victim])
+        await until(lambda: not rados.monc.osdmap.is_up(victim),
+                    f"an epoch with osd.{victim} down")
+        t1 = time.perf_counter()
+        nbytes = await read_back("degraded")
+        t_read = time.perf_counter() - t1
+        k_read = ns.launches()
+        read_launches = {k: k_read[k] - k0.get(k, 0) for k in k_read
+                         if k_read[k] != k0.get(k, 0)}
+        await cluster.revive_osd(victim)
+        await until(lambda: victim in cluster.osds and
+                    rados.monc.osdmap.is_up(victim),
+                    f"osd.{victim} back up")
+        await until(lambda: pgs_clean(cluster.osds.values()),
+                    "clean PGs after the revive")
+        record("degraded", t0, k0, nbytes, read_s=t_read,
+               read_gib_s=nbytes / t_read / 2**30,
+               read_launches=read_launches, victim=victim)
+        if not read_launches.get(B1) and B1 in need:
+            raise AssertionError("degraded: the reads launched no B1")
+
+        # 5. load (one client: an EC read racing an overwrite of its own
+        # object can fail in both packages, ROADMAP Queue C)
+        t0, k0 = time.perf_counter(), ns.launches()
+        lg = ns.loadgen
+        sbe = lg.S3Backend(fe.host, fe.port, user["access_key"],
+                           user["secret_key"], bucket="serve")
+        gen = lg.LoadGen(sbe, seed=seed, mode="closed", clients=1,
+                         total_ops=loadgen_ops, n_keys=48,
+                         tenant_class="gold", read_fraction=0.7,
+                         zipf_s=1.1)
+        await gen.populate()
+        res = await gen.run()
+        if res["errors"] or res["ops"] != loadgen_ops:
+            raise AssertionError(f"load: load generator {res}")
+        for key, size in gen.key_sizes().items():
+            if await sbe.get(key) != lg._payload(key, size):
+                raise AssertionError(f"load: key {key} differs")
+        record("load", t0, k0, res["bytes_put"] + res["bytes_get"],
+               loadgen={k: res[k] for k in (
+                   "ops", "errors", "puts", "gets", "bytes_put",
+                   "bytes_get", "wall_s", "ops_per_s", "p50_ms", "p99_ms",
+                   "p999_ms")})
+
+        # 6. scrub
+        t0, k0 = time.perf_counter(), ns.launches()
+        n_cold = await cold_objects()
+        await command("osd unset", flag="noscrub")
+        scrub = {}
+
+        async def swept():
+            scrub.clear()
+            for osd_id in cluster.osds:
+                stats = await rados.osd_daemon_command(
+                    osd_id, "ec_scrub_stats", timeout=RGW_WAIT_S)
+                for key in ("sweeps", "objects", "errors"):
+                    scrub[key] = scrub.get(key, 0) + \
+                        stats["engine"].get(key, 0)
+            return scrub["objects"] >= n_cold
+
+        await until(swept, "background scrub sweep", every=0.25)
+        await command("osd set", flag="noscrub")
+        record("scrub", t0, k0, scrub=dict(scrub),
+               cold_rados_objects=n_cold)
+        if scrub["errors"]:
+            raise AssertionError(f"the scrub found {scrub['errors']} errors")
+
+        # 7. gc
+        t0, k0 = time.perf_counter(), ns.launches()
+        before = await cold_objects()
+        doomed = list(cold)[:deletes]
+        for key in doomed:
+            await s3("DELETE", f"/cold/{key}", ok=(204,))
+        queued = len(await fe.rgw.gc_list())
+        still = await cold_objects()
+        reaped = await fe.rgw.gc_process(
+            now=time.time() + RGW_OVERRIDES["rgw_gc_obj_min_wait"] + 1)
+        after = await cold_objects()
+        record("gc", t0, k0, deleted=len(doomed), gc_queued=queued,
+               gc_reaped=reaped, cold_before=before,
+               cold_before_gc=still, cold_after=after)
+        if still != before or before - after != len(doomed):
+            raise AssertionError(f"gc: cold pool {before} -> {still} -> "
+                                 f"{after} for {len(doomed)} deletes")
+        for key in doomed:
+            await s3("GET", f"/cold/{key}", ok=(404,))
+    finally:
+        if rados is not None:
+            await rados.shutdown()
+        await cluster.stop()
+        ns.reset_local_namespace()
+    return {"steps": steps, "seconds": time.perf_counter() - t_phase}
+
+
+def rgw_phase(dev) -> dict:
+    """Wave (i) on the port's dev cluster, its OSD daemons on the CUDA
+    device ``dev``."""
+    import asyncio
+    import functools
+    from types import SimpleNamespace
+
+    import torch
+
+    from ceph_tpu_torch import vstart
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.msg import reset_local_namespace
+    from ceph_tpu_torch.placement import compiler
+    from ceph_tpu_torch.services import rgw_http
+    from ceph_tpu_torch.testing import loadgen
+
+    ns = SimpleNamespace(
+        DevCluster=functools.partial(vstart.DevCluster, device=dev),
+        SCALE_TEST_OVERRIDES=vstart.SCALE_TEST_OVERRIDES,
+        reset_local_namespace=reset_local_namespace, compiler=compiler,
+        loadgen=loadgen, rgw_http=rgw_http,
+        launches=lambda: dict(ck.LAUNCHES), sync=torch.cuda.synchronize)
+    return asyncio.run(rgw_wave(ns))
 
 
 def main() -> int:
@@ -3763,7 +4229,28 @@ def main() -> int:
     if mgr_run["seconds"] > MGR_BUDGET_S:
         raise AssertionError(f"the mgr phase took {mgr_run['seconds']:.1f} s")
 
-    # -- 10. result lines -----------------------------------------------------
+    # -- 10. the gateway, counted ---------------------------------------------
+    # Wave (i): S3 traffic through the port's gateway, tiered into the 8+4
+    # cold pool that twelve OSD daemons serve (rgw_phase).  B1 carries the
+    # cold PUTs' and the transitions' encodes, the degraded GETs' decodes
+    # and the scrub's re-encode; the wave fails unless B1 launched in its
+    # put-cold, transition and degraded steps.
+    ck.reset_launch_counts()
+    rgw_run = rgw_phase(dev)
+    rgw_launches = counts()
+    log(f"[main path: rgw] launches {rgw_launches}; "
+        f"{len(rgw_run['steps'])} steps in {rgw_run['seconds']:.2f} s "
+        f"(budget {RGW_BUDGET_S:.0f} s)")
+    if rgw_launches[B1] == 0:
+        raise AssertionError(f"kernel {B1} was not launched on the "
+                             f"gateway main path")
+    for name in ck.LAUNCHES:
+        main_launches[name] += rgw_launches[name]
+    if rgw_run["seconds"] > RGW_BUDGET_S:
+        raise AssertionError(f"the gateway phase took "
+                             f"{rgw_run['seconds']:.1f} s")
+
+    # -- 11. result lines -----------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",

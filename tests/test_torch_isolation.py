@@ -620,33 +620,36 @@ def test_make_ec_mesh_without_devices_raises_without_cuda(monkeypatch):
 
 def test_vstart_imports_no_mds_mgr_or_rgw():
     """The dev cluster's MDS, manager and gateway starters import their
-    modules lazily: importing vstart loads none of them.  The manager is
-    the port's (with its dashboard and orchestrator backend it boots,
-    reports and stops on the CPU); the MDS and gateway starters raise
-    ModuleNotFoundError until ROADMAP A12.2/A12.4 bring them."""
+    modules lazily: importing vstart loads none of them.  The manager and
+    the gateway are the port's (the mgr with its dashboard and
+    orchestrator backend boots, reports and stops on the CPU; the gateway
+    serves a signed S3 round trip); the MDS starter raises
+    ModuleNotFoundError until ROADMAP A12.4 brings it."""
     script = r"""
 import asyncio, sys
 import ceph_tpu_torch.vstart as vstart
-# services/__init__ exports Mgr, as the reference's does, so the mgr
-# module itself comes with the object classes the daemon imports
-lazy = ("ceph_tpu_torch.mds", "ceph_tpu_torch.services.rgw",
+# services/__init__ exports Mgr and RGWLite, as the reference's does, so
+# the mgr module and the gateway's object layer come with the object
+# classes the daemon imports; the gateway's placement, front end and
+# push endpoints stay lazy
+lazy = ("ceph_tpu_torch.mds", "ceph_tpu_torch.services.rgw_",
         "ceph_tpu_torch.services.dashboard",
         "ceph_tpu_torch.services.orchestrator",
         "ceph_tpu_torch.services.mgr_")
 loaded = [m for m in sys.modules if m.startswith(lazy)]
 assert not loaded, loaded
-later = ("ceph_tpu_torch.mds", "ceph_tpu_torch.services.rgw")
 cluster = vstart.DevCluster(n_mons=1, n_osds=0, device="cpu")
-for start in (cluster.start_mds, cluster.start_rgw):
-    try:
-        asyncio.run(start())
-    except ModuleNotFoundError as e:
-        assert e.name.startswith(later), e.name
-    else:
-        raise SystemExit(f"{start.__name__} ran")
+try:
+    asyncio.run(cluster.start_mds())
+except ModuleNotFoundError as e:
+    assert e.name.startswith("ceph_tpu_torch.mds"), e.name
+else:
+    raise SystemExit("start_mds ran")
 
 async def mgr():
-    cluster = vstart.DevCluster(n_mons=1, n_osds=1, device="cpu")
+    from ceph_tpu_torch.testing.loadgen import S3Backend
+
+    cluster = vstart.DevCluster(n_mons=1, n_osds=3, device="cpu")
     await cluster.start()
     try:
         mgr = await cluster.start_mgr(dashboard=True, orchestrate=True)
@@ -655,9 +658,17 @@ async def mgr():
         assert mgr.dashboard.port > 0
         backend = mgr.modules["orchestrator"].backend
         assert backend is not None and backend.cluster is cluster
+        fe, users = await cluster.start_rgw()
+        assert mgr.dashboard.rgw is fe.rgw
+        alice = await users.create("alice")
+        s3 = S3Backend(fe.host, fe.port, alice["access_key"],
+                       alice["secret_key"], bucket="b")
+        await s3.ensure_bucket()
+        await s3.put("k", b"v" * 100)
+        assert await s3.get("k") == b"v" * 100
     finally:
         await cluster.stop()
-    assert not cluster.mgrs and mgr.dashboard is None
+    assert not cluster.mgrs and mgr.dashboard is None and not cluster.rgws
 
 asyncio.run(mgr())
 print("vstart-ok")
@@ -695,7 +706,9 @@ def test_device_shard_cache_places_entries_on_its_slots():
 # -- the port's copies of reference modules -----------------------------------
 
 # Modules that equal their reference apart from imports and docstrings:
-# the manager, its modules and engines and the load generator, the monitor
+# the S3 gateway (object layer, placement, front end, bucket policies, key
+# management, push endpoints), the manager, its modules and engines and
+# the load generator, the monitor
 # and the client, placement/, the OSD map and the OSD's host helpers, and
 # the earlier slices' copies.  mon/osd_monitor.py, services/mgr_modules.py
 # and testing/chaos.py each have a test of their departure below.
@@ -716,7 +729,9 @@ COPIED = [
     "services/mgr_perf.py", "services/mgr_slo.py", "services/mgr_qos.py",
     "services/mgr_tsdb.py", "services/mgr_multisite.py",
     "services/orchestrator.py", "services/mgr.py", "services/dashboard.py",
-    "testing/loadgen.py",
+    "testing/loadgen.py", "services/iam.py", "services/kms.py",
+    "services/rgw_push.py", "services/rgw.py", "services/rgw_zone.py",
+    "services/rgw_http.py",
 ]
 COPIED_EARLIER = [
     "common/admin_socket.py", "common/backoff.py", "common/cache.py",
@@ -842,6 +857,15 @@ def test_osd_monitor_equals_its_reference_but_for_the_cpu_codec():
     ("services/dashboard.py", {"ceph_tpu_torch.services.rgw_zone"}),
     ("testing/loadgen.py", {"ceph_tpu_torch.client.rados",
                             "ceph_tpu_torch.services.rgw_http"}),
+    ("services/rgw.py", {"cryptography.hazmat.primitives.ciphers",
+                         "ceph_tpu_torch.services",
+                         "ceph_tpu_torch.services.kms",
+                         "ceph_tpu_torch.services.rgw_push",
+                         "ceph_tpu_torch.services.rgw_zone"}),
+    ("services/rgw_zone.py", {"ceph_tpu_torch.common.compressor",
+                              "ceph_tpu_torch.services.rgw_sync"}),
+    ("services/rgw_http.py", {"ceph_tpu_torch.client.rados",
+                              "ceph_tpu_torch.services.rgw"}),
     ("testing/chaos.py", {"ceph_tpu_torch.osd.backfill",
                           "ceph_tpu_torch.osd.osd_map",
                           "ceph_tpu_torch.osd.pg",
@@ -856,9 +880,11 @@ def test_lazy_imports_name_the_port(rel, names):
     transaction, the MDS monitor's message, osd_map's PG helpers and
     mapping, snaps' PG log names, tester's compiler, the mgr's modules and
     the reaches of the mgr, the load generator and the drills into the
-    gateway, block images, CephFS and tools) are the port's: the static
-    scan above walks them too.  Those of ROADMAP A12.2-A12.5 (``rgw*``,
-    ``rbd``, ``client.fs``, ``tools``) name modules the port has not yet;
+    gateway, block images, CephFS and tools, the gateway's reaches into
+    its placement, policies, key management, push endpoints and
+    multisite sync) are the port's: the static scan above walks them too.
+    Those of ROADMAP A12.2b-A12.5 (``rgw_sync``, ``rbd``, ``client.fs``,
+    ``tools``) name modules the port has not yet;
     ``test_later_slices_raise_until_they_land`` calls them."""
     tree = ast.parse((REPO / "ceph_tpu_torch" / rel).read_text())
     lazy = {node.module for fn in ast.walk(tree)
@@ -1070,11 +1096,13 @@ def _public(module):
     "services/mgr_slo.py", "services/mgr_qos.py", "services/mgr_tsdb.py",
     "services/mgr_multisite.py", "services/orchestrator.py",
     "services/mgr.py", "services/dashboard.py", "testing/loadgen.py",
-    "testing/chaos.py"])
+    "testing/chaos.py", "services/iam.py", "services/kms.py",
+    "services/rgw_push.py", "services/rgw.py", "services/rgw_zone.py",
+    "services/rgw_http.py"])
 def test_public_names_equal_the_references(rel):
-    """Each module of the manager's slice defines the reference's public
-    classes and functions, ``S3Backend`` and the RBD/RGW paths included
-    (they raise until ROADMAP A12.2/A12.3 land)."""
+    """Each module of the manager's and the gateway's slices defines the
+    reference's public classes and functions, the RBD and multisite paths
+    included (they raise until ROADMAP A12.2b/A12.3 land)."""
     import importlib
 
     name = rel[:-3].replace("/", ".")
@@ -1086,26 +1114,28 @@ def test_public_names_equal_the_references(rel):
 @pytest.mark.parametrize("pkg", ["services", "testing"])
 def test_package_exports_name_the_ports_modules(pkg):
     """``testing`` exports what the reference's does; ``services`` the
-    reference's exports the port has (object classes and the mgr)."""
+    reference's exports the port has (object classes, the mgr and the
+    gateway)."""
     import importlib
 
     port = importlib.import_module(f"ceph_tpu_torch.{pkg}")
     ref = importlib.import_module(f"ceph_tpu.{pkg}")
     want = set(ref.__all__) if pkg == "testing" else \
-        {"ClassRegistry", "ClsError", "Mgr"}
+        {"ClassRegistry", "ClsError", "Mgr", "RGWLite"}
     assert set(port.__all__) == want and want <= set(ref.__all__)
     for n in port.__all__:
         assert getattr(port, n).__module__.startswith("ceph_tpu_torch."), n
 
 
-def test_later_slices_raise_until_they_land():
-    """The lazy reaches into ROADMAP A12.2-A12.5: the load generator's S3
-    backend (rgw_http), the dashboard's placement route (rgw_zone), RBD
-    support's trash purge (rbd), a due snapshot schedule (client.fs) and
-    the zone-loss drill (rgw) raise ModuleNotFoundError naming the
-    module."""
-    from ceph_tpu_torch.services import dashboard, mgr_modules, mgr_perf
-    from ceph_tpu_torch.testing import chaos, loadgen
+def test_later_slices_raise_until_they_land(monkeypatch):
+    """The lazy reaches into ROADMAP A12.2b-A12.5: RBD support's trash
+    purge (rbd), a due snapshot schedule (client.fs) and the gateway's sync
+    orchestrator (rgw_sync) raise ModuleNotFoundError naming the module.
+    The zone-loss drill now gets past the gateway (A12.2a) and stops at
+    the multisite realm's first zone, whose dev cluster takes no device
+    until A12.2b passes one through."""
+    from ceph_tpu_torch.services import mgr_modules, mgr_perf, rgw_zone
+    from ceph_tpu_torch.testing import chaos
 
     class Mgr:
         name = "mgr.x"
@@ -1126,24 +1156,25 @@ def test_later_slices_raise_until_they_land():
         async def _client(self):
             raise AssertionError("purge reached the client first")
 
-    class Rgw:
-        ioctx = None
+    async def orchestrate():
+        rgw_zone.SyncOrchestrator(None, "earth", {})
 
-    dash = dashboard.Dashboard.__new__(dashboard.Dashboard)
-    dash.rgw = Rgw()
     calls = {
-        "ceph_tpu_torch.services.rgw_http":
-            loadgen.S3Backend("127.0.0.1", 1, "a", "s").put("k", b""),
-        "ceph_tpu_torch.services.rgw_zone": dash._rgw_placement(),
         "ceph_tpu_torch.services.rbd":
             Rbd(Mgr(), None)._purge_pool("rbd"),
         "ceph_tpu_torch.client.fs": due_schedule(),
-        "ceph_tpu_torch.services.rgw": chaos.run_zone_loss_drill(),
+        "ceph_tpu_torch.services.rgw_sync": orchestrate(),
     }
     for name, coro in calls.items():
         with pytest.raises(ModuleNotFoundError) as e:
             asyncio.run(coro)
         assert e.value.name == name
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device") as e:
+        asyncio.run(chaos.run_zone_loss_drill())
+    frames = [f.name for f in e.traceback]
+    assert "_boot_zone" in frames and "start_osd" in frames, frames
 
 
 # The manager's slice: a port DevCluster of one mon and three OSD daemons
@@ -1205,3 +1236,48 @@ assert db.query("x")["points"] == [[0.0, 1.0]]
 
 def test_manager_runs_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_MGR_RUN)
+
+
+# The gateway's slice: a port DevCluster of one mon and three OSD daemons
+# on the CPU with an S3 endpoint over a replicated hot pool and a k=2 m=1
+# erasure-coded cold class: a signed PUT and GET through the load
+# generator's S3 client, a PUT straight into the cold class, a lifecycle
+# transition into it, every body read back.
+BLOCKED_RGW_RUN = BLOCKER + r"""
+import asyncio, time
+import torch
+torch.cuda.is_available = lambda: False
+from ceph_tpu_torch.testing.loadgen import S3Backend
+from ceph_tpu_torch.vstart import DevCluster
+
+async def run():
+    cluster = DevCluster(n_mons=1, n_osds=3, device="cpu")
+    await cluster.start()
+    try:
+        fe, users = await cluster.start_rgw(cold_pool="rgw.cold", ec_k=2,
+                                            ec_m=1)
+        alice = await users.create("alice")
+        s3 = S3Backend(fe.host, fe.port, alice["access_key"],
+                       alice["secret_key"], bucket="b")
+        await s3.ensure_bucket()
+        await s3.put("logs/hot", b"h" * 5000)
+        gw = fe.rgw
+        await gw.put_object("b", "cold", b"c" * 7000, storage_class="COLD")
+        await gw.put_lifecycle("b", [
+            {"id": "t", "prefix": "logs/", "status": "Enabled",
+             "transition_seconds": 1, "transition_class": "COLD"}])
+        assert await gw.lc_process(now=time.time() + 5) == \
+            {"b": ["logs/hot->COLD"]}
+        assert await s3.get("logs/hot") == b"h" * 5000
+        got = await gw.get_object("b", "cold")
+        assert got["data"] == b"c" * 7000
+        assert (await gw.head_object("b", "cold"))["pool"] == "rgw.cold"
+    finally:
+        await cluster.stop()
+
+asyncio.run(run())
+""" + CHECK
+
+
+def test_gateway_runs_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_RGW_RUN)

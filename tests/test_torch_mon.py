@@ -129,9 +129,20 @@ async def wait_quorum(mons, timeout=10.0 * SLACK, size=None):
             if size is None or len(leader.elector.quorum) == size:
                 return leader
         if loop.time() > deadline:
-            raise TimeoutError(
-                f"no quorum: {[(m.name, m.elector.leader) for m in alive]}")
+            raise TimeoutError("no quorum: " + "; ".join(
+                elector_state(m) for m in alive))
         await asyncio.sleep(0.02)
+
+
+def elector_state(mon) -> str:
+    """One live mon's election state, for a quorum that never formed."""
+    e = mon.elector
+    state = ("electing" if e.electing else
+             "leader" if mon.is_leader else
+             "peon" if e.leader is not None else "probing")
+    return (f"{mon.name}: state={state} epoch={e.epoch} "
+            f"leader={e.leader} electing={e.electing} "
+            f"quorum={e.quorum} paxos.ready={mon.paxos.ready}")
 
 
 async def wait_epoch(mons, epoch, timeout=10.0 * SLACK):
@@ -794,3 +805,40 @@ async def _pool_ids(pkg: Pkg):
 def test_pool_ids_never_reused(monkeypatch):
     out = run_on_both(_pool_ids, monkeypatch)
     assert_equal_across(out)
+
+
+@pytest.mark.parametrize("root", PKG_NAMES)
+def test_wait_quorum_timeout_names_each_electors_state(root):
+    """One mon of a three-mon map can win no election: ``wait_quorum``
+    gives up with that mon's elector state, epoch, leader, quorum and
+    paxos readiness in its message, and a formed quorum reads as a
+    leader's."""
+    pkg = PKGS[root]
+
+    async def run():
+        pkg.reset()
+        monmap = {n: f"local://mon.{n}" for n in "abc"}
+        mon = pkg.Monitor("a", monmap, fast_conf(pkg))
+        await mon.start()
+        try:
+            with pytest.raises(TimeoutError) as e:
+                await wait_quorum([mon], timeout=1.0)
+            msg = str(e.value)
+            assert msg.startswith("no quorum: a: state=electing epoch=")
+            assert "leader=None electing=True quorum=[] " \
+                   "paxos.ready=False" in msg, msg
+        finally:
+            await mon.shutdown()
+        solo = pkg.Monitor("s", {"s": "local://mon.s"}, fast_conf(pkg))
+        await solo.start()
+        try:
+            await wait_quorum([solo])
+            state = elector_state(solo)
+        finally:
+            await solo.shutdown()
+            pkg.reset()
+        assert state.startswith("s: state=leader epoch=") and \
+            "leader=s electing=False quorum=['s'] paxos.ready=True" in \
+            state, state
+
+    asyncio.run(run())
