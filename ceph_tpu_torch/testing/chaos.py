@@ -2,10 +2,10 @@
 
 Counterpart of ceph_tpu/testing/chaos.py: the same module over the
 port's imports.  Its one departure: ``device=`` on ``ChaosHarness`` and on
-each drill that builds a cluster, handed to every ``DevCluster`` it builds
-(None means CUDA, raising when there is none).  The zone-loss drills keep
-their lazy imports of the gateway, which the port has not yet (ROADMAP
-A12.2).
+each drill that builds a cluster, handed to every ``DevCluster`` and
+``MultisiteRealm`` it builds (None means CUDA, raising when there is
+none); ``run_zone_loss_dr_drill`` hands its keywords, ``device=`` among
+them, to ``run_zone_loss_drill``.
 
 The qa thrash-erasure-code suites compose three independent chaos sources
 (daemon kill/revive, socket-failure injection, model-based random ops with
@@ -1092,7 +1092,8 @@ async def run_zone_loss_drill(seed: int = 0, n_objects: int = 12,
                               obj_size: int = 4096,
                               rto_slo_s: float = 30.0,
                               datalog_shards: int = 4,
-                              dr_rebuild: bool = False) -> dict:
+                              dr_rebuild: bool = False,
+                              device=None) -> dict:
     """Whole-zone loss, graded end to end (the geo-replication SLO).
 
     Boots a two-zone realm — zone ``a`` master over durable stores,
@@ -1136,7 +1137,8 @@ async def run_zone_loss_drill(seed: int = 0, n_objects: int = 12,
         ("a", "b"), n_osds=3,
         overrides={"rgw_datalog_shards": datalog_shards},
         store_dirs={"a": adir}, with_mgr=True,
-        agent_kwargs={"poll_interval": 0.05, "seed": seed})
+        agent_kwargs={"poll_interval": 0.05, "seed": seed},
+        device=device)
     out: dict = {"seed": seed, "dr_rebuild": dr_rebuild,
                  "shards": datalog_shards}
     loop = asyncio.get_running_loop()

@@ -2,9 +2,10 @@
 
 Counterpart of ceph_tpu/vstart.py: the same module over the
 port's imports.  Its one departure: ``DevCluster(device=)``, handed to
-every OSD daemon it starts (None means CUDA, raising when there is none).
-The MDS, manager and gateway starters keep their lazy imports of modules
-the port has not yet (ROADMAP A12).
+every OSD daemon it starts (None means CUDA, raising when there is none),
+and ``MultisiteRealm(device=)``, handed to each zone's ``DevCluster``.
+The MDS starter keeps its lazy import of a module the port has not yet
+(ROADMAP A12.4).
 
 The reference's src/vstart.sh (1,554 LoC of shell) spins a dev cluster of
 real daemons in a temp dir. Here one object boots monitors + OSDs inside
@@ -508,7 +509,7 @@ class MultisiteRealm:
                  store_dirs: dict | None = None,
                  with_mgr: bool = False,
                  mgr_report_interval: float = 0.2,
-                 agent_kwargs: dict | None = None):
+                 agent_kwargs: dict | None = None, device=None):
         self.zone_names = list(zone_names)
         assert self.zone_names, "a realm needs at least one zone"
         self.realm = realm
@@ -522,6 +523,7 @@ class MultisiteRealm:
         self.with_mgr = with_mgr
         self.mgr_report_interval = mgr_report_interval
         self.agent_kwargs = dict(agent_kwargs or {})
+        self.device = device
         # zone name -> {"cluster", "fe", "users", "gw", "rados",
         #               "store", "orch", "mgr"}
         self.zones: dict[str, dict] = {}
@@ -565,7 +567,7 @@ class MultisiteRealm:
             overrides={**self.overrides,
                        **self.zone_overrides.get(name, {})},
             store_dir=self.store_dirs.get(name),
-            monmap=monmap)
+            monmap=monmap, device=self.device)
         await cluster.start()
         mgr = None
         if self.with_mgr:

@@ -131,7 +131,7 @@ and, phase by phase, raising on any failure:
    messenger, on the dev cluster's scale-profile liveness timers.  On
    WalStores: 64 objects of 4 MiB written concurrently to a pool of one PG
    and read back (the daemons' coalescer must take them in fewer
-   launches than ops); a pool of 128 PGs, 64 objects of 4 MiB, one OSD
+   launches than ops); a pool of 64 PGs, 64 objects of 4 MiB, one OSD
    killed and marked down by ``osd down``, 16 degraded writes into one
    PG, every object read degraded, the OSD revived, HEALTH_OK, the batched
    repair engine's ``ec_repair_stats`` polled over the wire until it
@@ -200,8 +200,8 @@ and, phase by phase, raising on any failure:
     dashboard, and the port's S3 gateway from ``start_rgw(cold_pool=
     "rgw.cold", ec_k=8, ec_m=4)``: a replicated hot pool and the 8+4 COLD
     class at 8 PGs.  Every request SigV4-signed over 127.0.0.1.  Put-cold:
-    64 concurrent 4 MiB PUTs with ``x-amz-storage-class: COLD``;
-    put-hot + transition: 64 x 4 MiB through the load generator's
+    32 concurrent 4 MiB PUTs with ``x-amz-storage-class: COLD``;
+    put-hot + transition: 32 x 4 MiB through the load generator's
     ``S3Backend`` and a 64 MiB multipart upload in 8 MiB parts into the
     hot pool, a lifecycle rule (30 days to COLD) and ``lc_process`` 31 days
     on, every hot key moved; read-back: every GET exact (sha256, ETag,
@@ -215,7 +215,45 @@ and, phase by phase, raising on any failure:
     launched in the put-cold, transition and degraded steps, or if the
     phase outran its budget (120 s); its launches join the ``kernels``
     line's counts;
-11. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+11. runs multisite (``multisite_phase``, wave (j)) with the counts set to
+    0: a port realm of zones a and b, each 1 port mon, 12 port OSD daemons
+    on the card (MemStores, the resident shard cache) and the port's
+    gateway, each zone's COLD class on an 8+4 pool of 8 PGs set through
+    the port's ``rgw_admin``.  Put-a: 32 concurrent 4 MiB SigV4 PUTs with
+    user metadata into COLD on zone a; sync: zone b caught up
+    (``realm.lag()`` 0 entries and 0 bytes), b's lifecycle rule tiering
+    every replica into b's 8+4 pool, every GET from b exact (sha256,
+    length, metadata, class), ``rgw_admin sync status``; swift + file:
+    the port's ``SwiftFrontend`` on zone a (TempAuth, 8 x 4 MiB segments,
+    an SLO manifest read back exact), ``RGWFileSystem`` (mkdir, 4 x 4 MiB
+    files, readdir, rename, reads), b caught up, tiered and read back
+    exact; degraded: one OSD of b killed and marked down, every body read
+    from b exact, revived, PGs clean; dr: ``run_zone_loss_dr_drill`` at
+    its defaults (the measured RPO equal to its ledger, the conflict won
+    by b, convergence).  One "[multisite]" JSON line per step; it fails
+    on any difference, if B1 was not launched in the put-a, sync and
+    degraded steps, or if the phase outran its budget (150 s); its
+    launches join the ``kernels`` line's counts;
+12. runs the admin CLIs and block images (``block_phase``, wave (k)) with
+    the counts set to 0: 1 port mon and 12 port OSD daemons on the card
+    over durable stores.  Ec-cli: the port's CLI (argv parser) sets the
+    8+4 profile, creates the EC pool of 8 PGs, ``rados put``/``get`` of 16
+    x 4 MiB seeded files, exact; degraded-cli: one OSD killed and ``osd
+    down``, every file got exact, revived, PGs clean, ``status`` and ``osd
+    df``; block: on a replicated pool, the port's rbd tool imports a 64
+    MiB image, snapshots, protects and clones it, 16 MiB written into the
+    clone, both exported exact, ``rbd bench`` of 64 MiB in 4 MiB writes,
+    a group snapshot, a journaled 16 MiB image mirrored into ``rbd-dr``
+    and read back exact (0 launches: RBD needs omap and object classes,
+    which EC pools refuse); offline: one OSD stopped, the objectstore
+    tool lists exactly the EC shards the map places on it,
+    ``osdmaptool --test-map-pgs`` agrees with the map, the dencoder's
+    OSDMap round trip gives the same bytes; restarted, PGs clean.  One
+    "[block]" JSON line per step; it fails on any difference, if B1 was
+    not launched in the ec-cli and degraded-cli steps, or if the phase
+    outran its budget (120 s); its launches join the ``kernels`` line's
+    counts;
+13. prints the ``kernels`` JSON line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without CUDA, or when the package is
@@ -718,8 +756,11 @@ async def mon_map_wave(ns, crush_text: str, pg_num: int, motion_d: dict,
 CLUSTER_MONS = 3
 CLUSTER_OSDS = 12
 CLUSTER_PROFILE = dict(MAP_PROFILE)
-# mon_target_pg_per_osd 100 x 12 OSDs / 12 shards, up to a power of two
-CLUSTER_PG_NUM = 128
+# mon_target_pg_per_osd 100 x 12 OSDs / 12 shards is 100, 128 as a power
+# of two; cut to 64 to keep the whole script near 500 s once waves (j)
+# and (k) joined it (each daemon's CRUSH pass over the pool's epoch is
+# host work linear in the PG count)
+CLUSTER_PG_NUM = 64
 CLUSTER_OBJECTS = 64
 CLUSTER_OBJECT_BYTES = 4 << 20
 CLUSTER_DEGRADED = 16
@@ -2188,20 +2229,30 @@ MGR_GAUGES = ("ceph_util_device_gibps", "ceph_util_roofline_pct",
               "ceph_slo_burn_rate")
 
 
-async def _http_get(host: str, port: int, path: str,
-                    token: str | None = None):
-    """One GET against the dashboard: (status, body)."""
+async def _http(host: str, port: int, method: str, path: str,
+                headers: dict | None = None, body: bytes = b""):
+    """One HTTP/1.1 request over a fresh connection (the dashboard's, the
+    S3 and Swift front ends'): (status, headers, body)."""
     import asyncio
 
     reader, writer = await asyncio.open_connection(host, port)
-    auth = f"authorization: Bearer {token}\r\n" if token else ""
-    writer.write(f"GET {path} HTTP/1.1\r\nhost: {host}\r\n{auth}\r\n"
-                 .encode())
-    await writer.drain()
-    raw = await reader.read()
-    writer.close()
-    head, _, body = raw.partition(b"\r\n\r\n")
-    return int(head.split(b" ", 2)[1]), body
+    try:
+        hdrs = {"host": f"{host}:{port}", "content-length": str(len(body)),
+                "connection": "close", **(headers or {})}
+        head = "\r\n".join([f"{method} {path} HTTP/1.1"]
+                           + [f"{k}: {v}" for k, v in hdrs.items()])
+        writer.write(head.encode() + b"\r\n\r\n" + body)
+        await writer.drain()
+        raw = await reader.read()
+    finally:
+        writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    lines = head.decode().split("\r\n")
+    out = {}
+    for line in lines[1:]:
+        k, _, v = line.partition(":")
+        out[k.strip().lower()] = v.strip()
+    return int(lines[0].split(" ")[1]), out, payload
 
 
 async def mgr_wave(ns, *, pg_num: int = MGR_PG_NUM,
@@ -2407,7 +2458,8 @@ async def mgr_wave(ns, *, pg_num: int = MGR_PG_NUM,
         host, port = mgr.dashboard.host, mgr.dashboard.port
         codes, bodies = {}, {}
         for path in ("/api/status", "/api/slo", "/metrics"):
-            codes[path], bodies[path] = await _http_get(host, port, path)
+            codes[path], _, bodies[path] = await _http(host, port, "GET",
+                                                       path)
         status = json.loads(bodies["/api/status"])
         slo = json.loads(bodies["/api/slo"])
         metrics = bodies["/metrics"].decode()
@@ -2545,7 +2597,8 @@ def mgr_phase(dev) -> dict:
 # replicated.  GC entries wait an hour, so deletes ride the GC queue.
 RGW_BUDGET_S = 120.0
 RGW_WAIT_S = 60.0
-RGW_OBJECTS = 64
+# 64 until waves (j) and (k) joined the script; 32 keeps it near 500 s
+RGW_OBJECTS = 32
 RGW_OBJECT_BYTES = 4 << 20
 RGW_MULTIPART_BYTES = 64 << 20
 RGW_PART_BYTES = 8 << 20
@@ -2568,7 +2621,6 @@ async def _s3(rgw_http, host: str, port: int, ak: str, sk: str,
     """One SigV4-signed S3 request, signed with the gateway's own
     ``_Request``/``sigv4_sign`` as the load generator's S3 client signs:
     (status, headers, body)."""
-    import asyncio
     import hashlib
 
     hdrs = {"host": f"{host}:{port}",
@@ -2577,24 +2629,7 @@ async def _s3(rgw_http, host: str, port: int, ak: str, sk: str,
             **(headers or {})}
     hdrs["authorization"] = rgw_http.sigv4_sign(
         rgw_http._Request(method, path, hdrs, body), ak, sk)
-    hdrs["content-length"] = str(len(body))
-    reader, writer = await asyncio.open_connection(host, port)
-    try:
-        lines = [f"{method} {path} HTTP/1.1"]
-        lines += [f"{k}: {v}" for k, v in hdrs.items()]
-        lines += ["connection: close", "", ""]
-        writer.write("\r\n".join(lines).encode() + body)
-        await writer.drain()
-        raw = await reader.read()
-    finally:
-        writer.close()
-    head, _, payload = raw.partition(b"\r\n\r\n")
-    head_lines = head.decode().split("\r\n")
-    out = {}
-    for line in head_lines[1:]:
-        k, _, v = line.partition(":")
-        out[k.strip().lower()] = v.strip()
-    return int(head_lines[0].split(" ")[1]), out, payload
+    return await _http(host, port, method, path, hdrs, body)
 
 
 async def rgw_wave(ns, *, n_osds: int = CLUSTER_OSDS, ec_k: int = 8,
@@ -2841,9 +2876,11 @@ async def rgw_wave(ns, *, n_osds: int = CLUSTER_OSDS, ec_k: int = 8,
         t0, k0 = time.perf_counter(), ns.launches()
         nbytes = await read_back("read-back")
         dash = (mgr.dashboard.host, mgr.dashboard.port)
-        pst, pbody = await _http_get(*dash, "/api/rgw/placement", RGW_TOKEN)
-        lst, lbody = await _http_get(*dash, "/api/rgw/lifecycle?bucket=hot",
-                                     RGW_TOKEN)
+        bearer = {"authorization": f"Bearer {RGW_TOKEN}"}
+        pst, _, pbody = await _http(*dash, "GET", "/api/rgw/placement",
+                                    bearer)
+        lst, _, lbody = await _http(*dash, "GET",
+                                    "/api/rgw/lifecycle?bucket=hot", bearer)
         placement = json.loads(pbody) if pst == 200 else []
         lifecycle = json.loads(lbody) if lst == 200 else {}
         cold_class = (placement[0]["storage_classes"].get("COLD", {})
@@ -2978,6 +3015,894 @@ def rgw_phase(dev) -> dict:
         loadgen=loadgen, rgw_http=rgw_http,
         launches=lambda: dict(ck.LAUNCHES), sync=torch.cuda.synchronize)
     return asyncio.run(rgw_wave(ns))
+
+
+# Wave (j): multisite.  Two zones of one realm, each a port mon, twelve
+# port OSD daemons on the card and the port's gateway; each zone's
+# default placement gets a COLD class on an 8+4 data pool (set through the
+# port's rgw_admin).  A STANDARD class pointed at that pool would change
+# nothing: a PUT in STANDARD rides the zone's own pool whatever the class
+# names (services/rgw.py, put_object's context), and the sync agent
+# writes each copy without its storage class (services/rgw_sync.py,
+# _replicate_put).  So zone a's PUTs name COLD, and zone b tiers every
+# replicated body into its own 8+4 pool by a lifecycle rule as soon as it
+# has caught up: every body the wave reads on b lives in EC.
+MULTISITE_BUDGET_S = 150.0
+MULTISITE_OBJECTS = 32
+MULTISITE_SWIFT_OBJECTS = 8
+MULTISITE_FILES = 4
+MULTISITE_OVERRIDES = {
+    "mon_osd_down_out_interval": 300.0,
+    "osd_ec_resident": True,
+}
+MULTISITE_SYNC_KEYS = {"rgw-source-mtime", "rgw-source-zone"}
+MULTISITE_CLASS = "COLD"
+
+
+async def _tool_text(tool, argv) -> str:
+    """One admin tool run through its own argv parser inside this loop
+    (``main`` in a thread for a tool without ``build_parser``): its
+    standard output; raises on a non-zero return code."""
+    import asyncio
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if hasattr(tool, "build_parser"):
+            rc = await tool._run(tool.build_parser().parse_args(argv))
+        else:
+            rc = await asyncio.to_thread(tool.main, argv)
+    if rc != 0:
+        raise AssertionError(f"{tool.__name__} {argv}: rc {rc} "
+                             f"{buf.getvalue()[:300]}")
+    return buf.getvalue()
+
+
+async def _tool_out(tool, argv):
+    """The JSON a tool printed (``{}`` for none)."""
+    text = (await _tool_text(tool, argv)).strip()
+    return json.loads(text) if text else {}
+
+
+async def multisite_wave(ns, store_dir: str, *, n_osds: int = CLUSTER_OSDS,
+                         ec_k: int = 8, ec_m: int = 4,
+                         objects: int = MULTISITE_OBJECTS,
+                         object_bytes: int = RGW_OBJECT_BYTES,
+                         swift_objects: int = MULTISITE_SWIFT_OBJECTS,
+                         files: int = MULTISITE_FILES,
+                         victim: int = CLUSTER_VICTIM, need: tuple = (B1,),
+                         seed: int = SEED, note=log) -> dict:
+    """Wave (j) over one package's ``ns``: ``MultisiteRealm`` (a partial
+    with the device), ``rgw_admin``, ``swift``, ``rgw_file``, ``rgw_http``,
+    ``compiler``, ``zone_loss_dr_drill`` (a partial with the device),
+    ``reset_local_namespace``, ``SCALE_TEST_OVERRIDES``, ``launches`` and
+    ``sync``; ``store_dir`` holds each zone's conf file for the admin
+    tool.
+
+    A realm of zones a (master) and b, each 1 mon and ``n_osds`` OSD
+    daemons (one per CRUSH host, MemStores, the resident shard cache) with
+    CRUSH's choose tries at 100 and its gateway; ``rgw_admin zone
+    placement add --storage-class COLD --data-pool <zone>.rgw.data
+    --ec-profile --ec-k --ec-m --create-pool`` on each zone (8 PGs,
+    failure domain osd).  Steps, a "[multisite]" JSON line each (wall
+    seconds, bytes, GiB/s, B1/B2 launches):
+
+    1. put-a: ``objects`` concurrent SigV4 PUTs of ``object_bytes`` with
+       user metadata and ``x-amz-storage-class: COLD`` into zone a;
+    2. sync: until ``realm.lag()["b"]`` is 0 entries and 0 bytes; b's
+       lifecycle rule tiers every replicated body into b's COLD pool
+       (``lc_process``); every object GET from zone b over HTTP exact
+       (sha256, length, user metadata and the sync's two source keys,
+       storage class); ``rgw_admin sync status`` from b;
+    3. swift + file: zone a's ``SwiftFrontend``: the TempAuth handshake,
+       ``swift_objects`` segments PUT into a container, an SLO manifest
+       over them, its GET exact; ``RGWFileSystem`` on zone a: mkdir,
+       ``files`` files written, readdir, one renamed, each read back; zone
+       b caught up, tiered, and all of it (the manifest's body too) read
+       back exact there;
+    4. degraded: OSD ``victim`` of zone b killed and marked down, every
+       object of steps 1 and 3 read from b exact (decodes); revived, PGs
+       clean;
+    5. dr: the realm stopped; ``run_zone_loss_dr_drill`` at its defaults
+       (its own realm of 3 OSDs a zone, replicated pools): the measured
+       RPO equal to the ledger, the conflict won by b, convergence.
+
+    The kernels of ``need`` must launch in steps 1, 2 and 4.  Raises on
+    any failure; returns each step's record."""
+    import asyncio
+    import hashlib
+    import os
+
+    import numpy as np
+
+    liveness = {key: ns.SCALE_TEST_OVERRIDES[key] for key in CLUSTER_LIVENESS}
+    rng = np.random.default_rng(seed)
+    steps: dict[str, dict] = {}
+    loop = asyncio.get_running_loop()
+
+    async def until(cond, what, timeout=RGW_WAIT_S, every=0.1):
+        deadline = loop.time() + timeout
+        while True:
+            got = cond()
+            if asyncio.iscoroutine(got):
+                got = await got
+            if got:
+                return got
+            if loop.time() > deadline:
+                raise AssertionError(f"no {what} in {timeout:.0f} s")
+            await asyncio.sleep(every)
+
+    def record(step, t0, k0, nbytes=0, launched=(), **kw):
+        ns.sync()
+        wall = time.perf_counter() - t0
+        k1 = ns.launches()
+        delta = {k: k1[k] - k0.get(k, 0) for k in k1
+                 if k1[k] != k0.get(k, 0)}
+        rec = {"step": step, "wall_s": wall, "bytes": nbytes,
+               "gib_s": nbytes / wall / 2**30 if nbytes else 0.0,
+               "b1_launches": delta.get(B1, 0),
+               "b2_launches": delta.get(B2, 0), **kw,
+               "kernel_launches": delta}
+        steps[step] = rec
+        note(f"[multisite] {json.dumps(rec)}")
+        missing = [k for k in launched if not delta.get(k)]
+        if missing:
+            raise AssertionError(f"{step}: {missing} not launched")
+        return rec
+
+    async def command(rados, prefix, **kw):
+        r = await rados.mon_command(prefix, timeout=RGW_WAIT_S, **kw)
+        if r["rc"] != 0:
+            raise AssertionError(f"{prefix}: {r}")
+        return r
+
+    async def s3(zone, method, path, body=b"", headers=None, ok=(200,)):
+        fe, user = zone["fe"], zone["user"]
+        st, hdrs, out = await _s3(ns.rgw_http, fe.host, fe.port,
+                                  user["access_key"], user["secret_key"],
+                                  method, path, body, headers)
+        if st not in ok:
+            raise AssertionError(f"{method} {path}: HTTP {st} {out[:200]}")
+        return hdrs, out
+
+    def user_meta(hdrs):
+        return {k[len("x-amz-meta-"):]: v for k, v in hdrs.items()
+                if k.startswith("x-amz-meta-")}
+
+    async def lag_b():
+        orch = realm.zones["b"]["orch"]
+        if orch is None or not orch.agents:
+            return None
+        return (await realm.lag())["b"]
+
+    async def caught_up():
+        return await lag_b() == {"entries": 0, "bytes": 0}
+
+    async def tier_b(buckets, keys):
+        """b's lifecycle: a transition rule on each of ``buckets`` (b's
+        copies), one ``lc_process`` a day on; exactly ``keys`` (the
+        buckets' bodies and directory markers; an SLO manifest stays)
+        moved into COLD."""
+        gw = realm.zones["b"]["gw"]
+        for bucket in buckets:
+            await gw.put_lifecycle(bucket, [
+                {"id": "tier", "prefix": "", "status": "Enabled",
+                 "transition_seconds": 1,
+                 "transition_class": MULTISITE_CLASS}])
+        t1 = time.perf_counter()
+        moved = await gw.lc_process(now=time.time() + 86400)
+        got = sorted(f"{bkt}/{m}" for bkt in buckets
+                     for m in moved.get(bkt, []))
+        if got != sorted(f"{bkt}/{k}->{MULTISITE_CLASS}"
+                         for bkt, k in keys):
+            raise AssertionError(f"b's transition: {moved}")
+        return len(got), time.perf_counter() - t1
+
+    async def read_b(step):
+        """Every S3 object and every Swift and file body from zone b over
+        HTTP (gateway GETs for the files): exact."""
+        b = realm.zones["b"]
+        bad, nbytes = [], 0
+
+        async def one(key):
+            hdrs, body = await s3(b, "GET", f"/geo/{key}")
+            sha, size, meta = want[key]
+            got_meta = user_meta(hdrs)
+            if hashlib.sha256(body).hexdigest() != sha or \
+                    len(body) != size or \
+                    hdrs.get("x-amz-storage-class") != MULTISITE_CLASS or \
+                    {k: v for k, v in got_meta.items()
+                     if k not in MULTISITE_SYNC_KEYS} != meta or \
+                    set(got_meta) - set(meta) != MULTISITE_SYNC_KEYS:
+                bad.append((key, len(body), got_meta))
+            return len(body)
+
+        nbytes += sum(await asyncio.gather(*(one(k) for k in want)))
+        for (bucket, key), data in extra.items():
+            got = (await b["gw"].get_object(bucket, key))["data"]
+            head = await b["gw"].head_object(bucket, key)
+            if got != data or head.get("storage_class") != MULTISITE_CLASS:
+                bad.append((bucket, key, len(got), head.get("pool")))
+            nbytes += len(got)
+        if bad:
+            raise AssertionError(f"{step}: {len(bad)} objects differ on b, "
+                                 f"first {bad[0]}")
+        return nbytes
+
+    t_phase = time.perf_counter()
+    ns.reset_local_namespace()
+    realm = ns.MultisiteRealm(("a", "b"), n_osds=n_osds,
+                              overrides={**liveness, **MULTISITE_OVERRIDES})
+    swift_fe = None
+    try:
+        # boot: the realm, choose tries at 100, the EC data pool per zone
+        t0, k0 = time.perf_counter(), ns.launches()
+        await realm.start()
+        b = realm.zones["b"]
+        placements = {}
+        for name, z in realm.zones.items():
+            rados = z["rados"]
+            text = ns.compiler.decompile(rados.monc.osdmap.crush)
+            tunable = "tunable choose_total_tries 50\n"
+            await command(rados, "osd setcrushmap", map=text.replace(
+                tunable, f"tunable choose_total_tries {MAP_CHOOSE_TRIES}\n"))
+            conf = os.path.join(store_dir, f"{name}.json")
+            z["cluster"].write_conf(conf)
+            pool = f"{name}.rgw.data"
+            have = await _tool_out(ns.rgw_admin, [
+                "--conf", conf, "--pool", "rgw", "zone", "placement", "ls"])
+            verb = "modify" if any(
+                MULTISITE_CLASS in p.get("storage_classes", {})
+                for p in (have.values() if isinstance(have, dict)
+                          else have)) else "add"
+            rec = await _tool_out(ns.rgw_admin, [
+                "--conf", conf, "--pool", "rgw", "zone", "placement", verb,
+                "--storage-class", MULTISITE_CLASS, "--data-pool", pool,
+                "--ec-profile", f"{name}-ec-{ec_k}-{ec_m}",
+                "--ec-k", str(ec_k), "--ec-m", str(ec_m), "--create-pool"])
+            got = await z["gw"]._class_placement(MULTISITE_CLASS)
+            if got.get("pool") != pool:
+                raise AssertionError(f"zone {name}: {MULTISITE_CLASS} "
+                                     f"resolves to {got}, not {pool}")
+            pool_id = next(pid for pid, p in
+                           rados.monc.osdmap.pools.items() if p.name == pool)
+            info = rados.monc.osdmap.pools[pool_id]
+            z["data_io"] = await rados.open_ioctx(pool)
+            z["data_pool"] = (pool_id, info.pg_num)
+            placements[name] = {"verb": verb, "pool": pool,
+                                "pg_num": info.pg_num,
+                                "type": info.pool_type,
+                                "classes": sorted(rec.get(
+                                    "storage_classes", {}))}
+            z["user"] = await z["users"].create("wave")
+
+        def active(z):
+            pool_id, pg_num = z["data_pool"]
+            return sum(1 for o in z["cluster"].osds.values()
+                       for pgid, pg in o.pgs.items()
+                       if pgid.pool == pool_id and pg.is_primary
+                       and pg.state == "active") == pg_num
+
+        for name, z in realm.zones.items():
+            await until(lambda: active(z), f"active data PGs in {name}")
+        await s3(realm.zones["a"], "PUT", "/geo")
+        record("boot", t0, k0, zones=sorted(realm.zones),
+               osds={n: len(z["cluster"].osds)
+                     for n, z in realm.zones.items()},
+               placements=placements, profile={"k": ec_k, "m": ec_m})
+
+        # 1. put-a
+        want: dict[str, tuple] = {}         # key -> (sha, size, meta)
+        extra: dict[tuple, bytes] = {}      # (bucket, key) -> body
+        a = realm.zones["a"]
+        t0, k0 = time.perf_counter(), ns.launches()
+        datas = {f"obj-{i:03d}": rng.bytes(object_bytes)
+                 for i in range(objects)}
+        await asyncio.gather(*(
+            s3(a, "PUT", f"/geo/{k}", d,
+               {"x-amz-meta-seq": str(i), "x-amz-meta-wave": "j",
+                "x-amz-storage-class": MULTISITE_CLASS})
+            for i, (k, d) in enumerate(datas.items())))
+        for i, (k, d) in enumerate(datas.items()):
+            want[k] = (hashlib.sha256(d).hexdigest(), len(d),
+                       {"seq": str(i), "wave": "j"})
+        n_data = len(await a["data_io"].list_objects())
+        record("put-a", t0, k0, objects * object_bytes, launched=need,
+               data_rados_objects=n_data)
+
+        # 2. sync
+        t0, k0 = time.perf_counter(), ns.launches()
+        await until(caught_up, "zone b caught up", timeout=RGW_WAIT_S,
+                    every=0.05)
+        t_sync = time.perf_counter() - t0
+        k_sync = ns.launches()
+        sync_launches = {k: k_sync[k] - k0.get(k, 0) for k in k_sync
+                         if k_sync[k] != k0.get(k, 0)}
+        # the replicated bucket belongs to b's gateway; b's admin grants
+        # b's user of the same name READ, as metadata sync would
+        await b["gw"].put_bucket_acl("geo", grants=[
+            {"grantee": "wave", "perm": "READ"}])
+        tiered, t_tier = await tier_b(["geo"], [("geo", k) for k in want])
+        nbytes = await read_b("sync")
+        status = await _tool_out(ns.rgw_admin, [
+            "--conf", os.path.join(store_dir, "b.json"), "--pool", "rgw",
+            "sync", "status"])
+        agents = list(b["orch"].agents.values())
+        record("sync", t0, k0, objects * object_bytes, launched=need,
+               replicate_s=t_sync,
+               replicate_gib_s=objects * object_bytes / t_sync / 2**30,
+               replicate_launches=sync_launches, tiered=tiered,
+               tier_s=t_tier, read_bytes=nbytes,
+               sync_put_ops=sum(int(ag.perf.value("sync_put_ops"))
+                                for ag in agents),
+               data_rados_objects_b=len(await b["data_io"].list_objects()),
+               sync_status=status)
+        if status.get("sync_markers", {}).get("geo") is None:
+            raise AssertionError(f"sync status: {status}")
+
+        # 3. swift + file
+        t0, k0 = time.perf_counter(), ns.launches()
+        swift_fe = ns.swift.SwiftFrontend(a["gw"], users=a["users"])
+        host, port = await swift_fe.start()
+        st, rh, _ = await _http(host, port, "GET", "/auth/v1.0", {
+            "x-auth-user": "wave:swift",
+            "x-auth-key": a["user"]["secret_key"]})
+        if st != 200:
+            raise AssertionError(f"swift auth: HTTP {st}")
+        auth = {"x-auth-token": rh["x-auth-token"]}
+        acct = rh["x-storage-url"].split("/v1/", 1)[1]
+        for container in ("segs", "docs"):
+            st, _, _ = await _http(host, port, "PUT",
+                                   f"/v1/{acct}/{container}", auth)
+            if st not in (201, 202):
+                raise AssertionError(f"swift container: HTTP {st}")
+        segs = [rng.bytes(object_bytes) for _ in range(swift_objects)]
+
+        async def put_seg(i, seg):
+            st, _, body = await _http(host, port, "PUT",
+                                      f"/v1/{acct}/segs/part{i:02d}",
+                                      auth, seg)
+            if st != 201:
+                raise AssertionError(f"swift PUT: HTTP {st} {body[:200]}")
+
+        await asyncio.gather(*(put_seg(i, s) for i, s in enumerate(segs)))
+        manifest = json.dumps([
+            {"path": f"/segs/part{i:02d}", "size_bytes": len(s)}
+            for i, s in enumerate(segs)]).encode()
+        st, _, body = await _http(
+            host, port, "PUT", f"/v1/{acct}/docs/big?multipart-manifest=put",
+            auth, manifest)
+        if st != 201:
+            raise AssertionError(f"SLO manifest: HTTP {st} {body[:200]}")
+        whole = b"".join(segs)
+        st, _, body = await _http(host, port, "GET",
+                                  f"/v1/{acct}/docs/big", auth)
+        if st != 200 or body != whole:
+            raise AssertionError(f"SLO GET: HTTP {st}, {len(body)} bytes")
+        for i, s in enumerate(segs):
+            extra[("segs", f"part{i:02d}")] = s
+        # b's copy of the manifest is the assembled body, a plain object
+        # (the agent replays what a GET of it returns)
+        extra[("docs", "big")] = whole
+        fs = ns.rgw_file.RGWFileSystem(a["gw"])
+        await fs.mkdir("/files")
+        await fs.mkdir("/files/dir")
+        bodies = {f"/files/dir/f{i}": rng.bytes(object_bytes)
+                  for i in range(files)}
+        for path, data in bodies.items():
+            await fs.write(path, data)
+        listed = sorted(await fs.readdir("/files/dir"))
+        if listed != sorted(p.rsplit("/", 1)[1] for p in bodies):
+            raise AssertionError(f"readdir: {listed}")
+        await fs.rename("/files/dir/f0", "/files/dir/renamed")
+        bodies["/files/dir/renamed"] = bodies.pop("/files/dir/f0")
+        for path, data in bodies.items():
+            if await fs.read(path, 0, len(data)) != data:
+                raise AssertionError(f"file read {path}")
+            extra[("files", path[len("/files/"):])] = data
+        t_a = time.perf_counter() - t0
+        await until(caught_up, "zone b caught up", timeout=RGW_WAIT_S,
+                    every=0.05)
+        tiered, t_tier = await tier_b(["segs", "docs", "files"],
+                                      [*extra, ("files", "dir/")])
+        fs_b = ns.rgw_file.RGWFileSystem(b["gw"])
+        if sorted(await fs_b.readdir("/files/dir")) != sorted(
+                p.rsplit("/", 1)[1] for p in bodies):
+            raise AssertionError("readdir on b")
+        nbytes = await read_b("swift+file")
+        fs_bytes = (swift_objects + files) * object_bytes
+        record("swift+file", t0, k0, fs_bytes, write_s=t_a,
+               slo_bytes=len(whole), files=len(bodies), tiered=tiered,
+               tier_s=t_tier, read_bytes=nbytes)
+
+        # 4. degraded
+        t0, k0 = time.perf_counter(), ns.launches()
+        await b["cluster"].kill_osd(victim)
+        await command(b["rados"], "osd down", ids=[victim])
+        await until(lambda: not b["rados"].monc.osdmap.is_up(victim),
+                    f"an epoch with osd.{victim} down in b")
+        t1 = time.perf_counter()
+        nbytes = await read_b("degraded")
+        t_read = time.perf_counter() - t1
+        k_read = ns.launches()
+        read_launches = {k: k_read[k] - k0.get(k, 0) for k in k_read
+                         if k_read[k] != k0.get(k, 0)}
+        await b["cluster"].revive_osd(victim)
+        await until(lambda: victim in b["cluster"].osds and
+                    b["rados"].monc.osdmap.is_up(victim),
+                    f"osd.{victim} back up in b")
+        await until(lambda: pgs_clean(b["cluster"].osds.values()),
+                    "clean PGs in b after the revive")
+        record("degraded", t0, k0, nbytes, read_s=t_read,
+               read_gib_s=nbytes / t_read / 2**30,
+               read_launches=read_launches, victim=victim)
+        if not read_launches.get(B1) and B1 in need:
+            raise AssertionError("degraded: the reads launched no B1")
+    finally:
+        if swift_fe is not None:
+            await swift_fe.stop()
+        await realm.stop()
+        ns.reset_local_namespace()
+
+    # 5. dr: the zone-loss drill with the offline mon-store rebuild
+    t0, k0 = time.perf_counter(), ns.launches()
+    try:
+        dr = await ns.zone_loss_dr_drill()
+    finally:
+        ns.reset_local_namespace()
+    slo = dr["slo"]
+    record("dr", t0, k0, rto_s=slo["rto_s"], rto_slo_s=slo["rto_slo_s"],
+           ledger=dr["ledger"],
+           rpo={k: dr["rpo"][k] for k in ("entries", "bytes")},
+           lost_keys=len(dr["rpo"]["keys"]),
+           conflict_winner=slo["conflict_winner"],
+           resync_purged=slo["resync_purged"], converged=slo["converged"],
+           dr_rebuild=dr["dr_rebuild"])
+    if not (slo["pass"] and slo["converged"] and dr["dr_rebuild"]
+            and dr["rpo"]["entries"] == dr["ledger"]["entries"]
+            and dr["rpo"]["bytes"] == dr["ledger"]["bytes"]):
+        raise AssertionError(f"dr: {dr}")
+    return {"steps": steps, "seconds": time.perf_counter() - t_phase}
+
+
+def multisite_phase(dev) -> dict:
+    """Wave (j) on the port's realm, every zone's OSD daemons on the CUDA
+    device ``dev``."""
+    import asyncio
+    import functools
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from ceph_tpu_torch import rgw_admin, vstart
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.msg import reset_local_namespace
+    from ceph_tpu_torch.placement import compiler
+    from ceph_tpu_torch.services import rgw_file, rgw_http, swift
+    from ceph_tpu_torch.testing import chaos
+
+    ns = SimpleNamespace(
+        MultisiteRealm=functools.partial(vstart.MultisiteRealm, device=dev),
+        SCALE_TEST_OVERRIDES=vstart.SCALE_TEST_OVERRIDES,
+        reset_local_namespace=reset_local_namespace, compiler=compiler,
+        rgw_admin=rgw_admin, rgw_http=rgw_http, swift=swift,
+        rgw_file=rgw_file,
+        zone_loss_dr_drill=functools.partial(chaos.run_zone_loss_dr_drill,
+                                             device=dev),
+        launches=lambda: dict(ck.LAUNCHES), sync=torch.cuda.synchronize)
+    with tempfile.TemporaryDirectory() as d:
+        return asyncio.run(multisite_wave(ns, d))
+
+
+# Wave (k): the admin CLIs and block images.  One port mon and twelve port
+# OSD daemons on the card over durable stores (so the offline tool can
+# read a stopped OSD); the port's ``ceph``/``rados`` CLI makes the 8+4
+# pool and moves files through it, and the port's rbd tool drives block
+# images on a replicated pool: RBD keeps its headers in omap and calls
+# object classes, which an EC pool refuses, so block I/O launches no
+# kernel in this design.
+BLOCK_BUDGET_S = 120.0
+BLOCK_FILES = 16
+BLOCK_IMAGE_BYTES = 64 << 20
+BLOCK_CLONE_WRITE = 16 << 20
+BLOCK_BENCH_BYTES = 64 << 20
+BLOCK_BENCH_IO = 4 << 20
+BLOCK_MIRROR_BYTES = 16 << 20
+BLOCK_PG_NUM = 8
+BLOCK_PROFILE = "wave-k"
+
+
+async def block_wave(ns, store_dir: str, *, n_osds: int = CLUSTER_OSDS,
+                     ec_k: int = 8, ec_m: int = 4,
+                     files: int = BLOCK_FILES,
+                     file_bytes: int = RGW_OBJECT_BYTES,
+                     image_bytes: int = BLOCK_IMAGE_BYTES,
+                     clone_write: int = BLOCK_CLONE_WRITE,
+                     bench_bytes: int = BLOCK_BENCH_BYTES,
+                     bench_io: int = BLOCK_BENCH_IO,
+                     mirror_bytes: int = BLOCK_MIRROR_BYTES,
+                     order: int = 22, victim: int = CLUSTER_VICTIM,
+                     need: tuple = (B1,), seed: int = SEED,
+                     note=log) -> dict:
+    """Wave (k) over one package's ``ns``: ``DevCluster`` (a partial with
+    the device), ``cli``, ``rbd_tool``, ``objectstore_tool``,
+    ``osdmaptool``, ``dencoder``, ``codec``, ``rbd``, ``rbd_group``,
+    ``rbd_mirror``, ``object_to_ps``, ``compiler``,
+    ``reset_local_namespace``, ``SCALE_TEST_OVERRIDES``, ``launches`` and
+    ``sync``; ``store_dir`` holds the daemons' durable stores, the conf
+    file and the files the CLIs read and write.
+
+    1 mon and ``n_osds`` OSD daemons (one per CRUSH host) on durable
+    stores, CRUSH's choose tries at 100, ``write_conf``.  Steps, a
+    "[block]" JSON line each (wall seconds, bytes, GiB/s, B1/B2
+    launches):
+
+    1. ec-cli: ``osd erasure-code-profile set`` (jax_rs, k, m, failure
+       domain osd) and ``osd pool create --pool-type erasure`` through the
+       CLI's argv parser; ``rados put`` of ``files`` seeded files of
+       ``file_bytes``, ``rados get`` of each, every one exact;
+    2. degraded-cli: OSD ``victim`` killed, ``osd down`` by the CLI, every
+       file got again exact (decodes); revived, PGs clean; the CLI's
+       ``status`` and ``osd df``;
+    3. block: a replicated pool ``rbd`` and its mirror ``rbd-dr``; the rbd
+       tool imports an image of ``image_bytes``, snapshots, protects and
+       clones it; ``clone_write`` bytes written into the clone through
+       ``RBD``/``Image``; both images exported and held to the expected
+       bytes; ``rbd bench`` of ``bench_bytes`` in ``bench_io`` writes; a
+       group snapshot of both images (``RBDGroups``); a journaled image
+       of ``mirror_bytes`` mirrored into ``rbd-dr`` by ``RBDMirror`` and
+       read back exact;
+    4. offline: OSD ``victim`` stopped; the objectstore tool's ``--op
+       list`` on its store lists exactly the EC shards the map places on
+       it; ``osdmaptool --test-map-pgs`` on the mon's current map agrees
+       with the map's own placement of every PG, and the dencoder's
+       OSDMap round trip gives the same bytes back; the OSD restarted,
+       PGs clean.
+
+    The kernels of ``need`` must launch in steps 1 and 2.  Raises on any
+    failure; returns each step's record."""
+    import asyncio
+    import os
+
+    import numpy as np
+
+    liveness = {key: ns.SCALE_TEST_OVERRIDES[key] for key in CLUSTER_LIVENESS}
+    rng = np.random.default_rng(seed)
+    steps: dict[str, dict] = {}
+    loop = asyncio.get_running_loop()
+
+    async def until(cond, what, timeout=RGW_WAIT_S, every=0.1):
+        deadline = loop.time() + timeout
+        while True:
+            got = cond()
+            if asyncio.iscoroutine(got):
+                got = await got
+            if got:
+                return got
+            if loop.time() > deadline:
+                raise AssertionError(f"no {what} in {timeout:.0f} s")
+            await asyncio.sleep(every)
+
+    def record(step, t0, k0, nbytes=0, launched=(), **kw):
+        ns.sync()
+        wall = time.perf_counter() - t0
+        k1 = ns.launches()
+        delta = {k: k1[k] - k0.get(k, 0) for k in k1
+                 if k1[k] != k0.get(k, 0)}
+        rec = {"step": step, "wall_s": wall, "bytes": nbytes,
+               "gib_s": nbytes / wall / 2**30 if nbytes else 0.0,
+               "b1_launches": delta.get(B1, 0),
+               "b2_launches": delta.get(B2, 0), **kw,
+               "kernel_launches": delta}
+        steps[step] = rec
+        note(f"[block] {json.dumps(rec)}")
+        missing = [k for k in launched if not delta.get(k)]
+        if missing:
+            raise AssertionError(f"{step}: {missing} not launched")
+        return rec
+
+    def path(name):
+        return os.path.join(store_dir, name)
+
+    conf = path("cluster.json")
+
+    async def ceph(*argv):
+        return await _tool_text(ns.cli, ["--conf", conf, *argv])
+
+    async def rbd_tool(*argv, pool="rbd"):
+        return await _tool_out(ns.rbd_tool,
+                               ["--conf", conf, "--pool", pool, *argv])
+
+    def pool_id(name):
+        return next(pid for pid, p in rados.monc.osdmap.pools.items()
+                    if p.name == name)
+
+    def active(name):
+        pid = pool_id(name)
+        pg_num = rados.monc.osdmap.pools[pid].pg_num
+        return sum(1 for o in cluster.osds.values()
+                   for pgid, pg in o.pgs.items()
+                   if pgid.pool == pid and pg.is_primary
+                   and pg.state == "active") == pg_num
+
+    async def get_all(step):
+        bad, nbytes = [], 0
+        for name, data in datas.items():
+            out = path(f"{name}.out")
+            await ceph("rados", "-p", "ecpool", "get", name, out)
+            with open(out, "rb") as f:
+                got = f.read()
+            os.unlink(out)
+            if got != data:
+                bad.append((name, len(got)))
+            nbytes += len(got)
+        if bad:
+            raise AssertionError(f"{step}: {len(bad)} files differ, first "
+                                 f"{bad[0]}")
+        return nbytes
+
+    t_phase = time.perf_counter()
+    ns.reset_local_namespace()
+    cluster = ns.DevCluster(n_mons=1, n_osds=n_osds, osds_per_host=1,
+                            store_dir=path("cluster"),
+                            overrides={**liveness, **MULTISITE_OVERRIDES})
+    rados = None
+    try:
+        t0, k0 = time.perf_counter(), ns.launches()
+        await cluster.start()
+        rados = await cluster.client()
+        r = await rados.mon_command("osd set", flag="noscrub",
+                                    timeout=RGW_WAIT_S)
+        text = ns.compiler.decompile(rados.monc.osdmap.crush)
+        tunable = "tunable choose_total_tries 50\n"
+        r = await rados.mon_command("osd setcrushmap", map=text.replace(
+            tunable, f"tunable choose_total_tries {MAP_CHOOSE_TRIES}\n"),
+            timeout=RGW_WAIT_S)
+        if r["rc"] != 0:
+            raise AssertionError(f"setcrushmap: {r}")
+        cluster.write_conf(conf)
+        record("boot", t0, k0, mons=len(cluster.mons),
+               osds=len(cluster.osds), stores=sorted(os.listdir(
+                   path("cluster"))))
+
+        # 1. ec-cli
+        t0, k0 = time.perf_counter(), ns.launches()
+        await ceph("osd", "erasure-code-profile", "set", BLOCK_PROFILE,
+                   "plugin=jax_rs", f"k={ec_k}", f"m={ec_m}",
+                   "crush-failure-domain=osd")
+        await ceph("osd", "pool", "create", "ecpool", "--pg-num",
+                   str(BLOCK_PG_NUM), "--pool-type", "erasure", "--profile",
+                   BLOCK_PROFILE)
+        profile = await _tool_out(ns.cli, [
+            "--conf", conf, "--format", "json", "osd",
+            "erasure-code-profile", "get", BLOCK_PROFILE])
+        await until(lambda: "ecpool" in [
+            p.name for p in rados.monc.osdmap.pools.values()],
+            "the ecpool in the client's map")
+        await until(lambda: active("ecpool"), "active EC PGs")
+        datas = {f"file-{i:02d}": rng.bytes(file_bytes)
+                 for i in range(files)}
+        t1 = time.perf_counter()
+        for name, data in datas.items():
+            with open(path(name), "wb") as f:
+                f.write(data)
+            await ceph("rados", "-p", "ecpool", "put", name, path(name))
+            os.unlink(path(name))
+        t_put = time.perf_counter() - t1
+        k_put = ns.launches()
+        put_launches = {k: k_put[k] - k0.get(k, 0) for k in k_put
+                        if k_put[k] != k0.get(k, 0)}
+        t1 = time.perf_counter()
+        nbytes = await get_all("ec-cli")
+        t_get = time.perf_counter() - t1
+        listed = (await ceph("rados", "-p", "ecpool", "ls")).split()
+        if sorted(listed) != sorted(datas):
+            raise AssertionError(f"rados ls: {listed}")
+        record("ec-cli", t0, k0, files * file_bytes, launched=need,
+               put_s=t_put, put_gib_s=files * file_bytes / t_put / 2**30,
+               get_s=t_get, get_gib_s=nbytes / t_get / 2**30,
+               put_launches=put_launches,
+               profile={k: profile.get(k) for k in ("plugin", "k", "m")})
+
+        # 2. degraded-cli
+        t0, k0 = time.perf_counter(), ns.launches()
+        await cluster.kill_osd(victim)
+        await ceph("osd", "down", str(victim))
+        await until(lambda: not rados.monc.osdmap.is_up(victim),
+                    f"an epoch with osd.{victim} down")
+        t1 = time.perf_counter()
+        nbytes = await get_all("degraded-cli")
+        t_read = time.perf_counter() - t1
+        k_read = ns.launches()
+        read_launches = {k: k_read[k] - k0.get(k, 0) for k in k_read
+                         if k_read[k] != k0.get(k, 0)}
+        await cluster.revive_osd(victim)
+        await until(lambda: victim in cluster.osds and
+                    rados.monc.osdmap.is_up(victim),
+                    f"osd.{victim} back up")
+        await until(lambda: pgs_clean(cluster.osds.values()),
+                    "clean PGs after the revive")
+        status = (await ceph("status")).splitlines()
+        df = await _tool_out(ns.cli, ["--conf", conf, "--format", "json",
+                                      "osd", "df"])
+        record("degraded-cli", t0, k0, nbytes, read_s=t_read,
+               read_gib_s=nbytes / t_read / 2**30,
+               read_launches=read_launches, victim=victim, status=status,
+               df={k: df.get(k) for k in ("total_bytes_used",)}
+               | {"nodes": len(df.get("nodes", []))})
+        if not read_launches.get(B1) and B1 in need:
+            raise AssertionError("degraded-cli: the reads launched no B1")
+
+        # 3. block
+        t0, k0 = time.perf_counter(), ns.launches()
+        for pool in ("rbd", "rbd-dr"):
+            await ceph("osd", "pool", "create", pool, "--pg-num",
+                       str(BLOCK_PG_NUM))
+        await until(lambda: "rbd-dr" in [
+            p.name for p in rados.monc.osdmap.pools.values()],
+            "the rbd pools in the client's map")
+        await until(lambda: active("rbd") and active("rbd-dr"),
+                    "active rbd PGs")
+        base = rng.bytes(image_bytes)
+        with open(path("img.in"), "wb") as f:
+            f.write(base)
+        t1 = time.perf_counter()
+        imported = await rbd_tool("import", "img", path("img.in"),
+                                  "--order", str(order))
+        t_import = time.perf_counter() - t1
+        os.unlink(path("img.in"))
+        await rbd_tool("snap", "create", "img@base")
+        await rbd_tool("snap", "protect", "img@base")
+        await rbd_tool("clone", "img@base", "child")
+        io = await rados.open_ioctx("rbd")
+        rbd = ns.rbd.RBD(io)
+        child = await rbd.open("child")
+        patch = rng.bytes(clone_write)
+        off = image_bytes // 3 // 4096 * 4096
+        await child.write(off, patch)
+        await child.close()
+        want = {"img": base,
+                "child": base[:off] + patch + base[off + clone_write:]}
+        exported = {}
+        for name, data in want.items():
+            out = path(f"{name}.exp")
+            exported[name] = (await rbd_tool("export", name, out))[
+                "exported"]
+            with open(out, "rb") as f:
+                got = f.read()
+            os.unlink(out)
+            if got != data:
+                raise AssertionError(f"export {name}: {len(got)} bytes "
+                                     f"differ from the expected")
+        await rbd_tool("create", "bench", "--size", str(bench_bytes),
+                       "--order", str(order))
+        bench = await rbd_tool("bench", "bench", "--io-type", "write",
+                               "--io-size", str(bench_io), "--io-total",
+                               str(bench_bytes))
+        groups = ns.rbd_group.RBDGroups(rbd)
+        await groups.create("wave")
+        for name in want:
+            await groups.image_add("wave", name)
+        await groups.snap_create("wave", "gsnap")
+        gsnaps = [s.get("name") for s in await groups.snap_list("wave")]
+        await rbd.create("jimg", mirror_bytes, order=order)
+        jimg = await rbd.open("jimg", journaled=True)
+        jdata = rng.bytes(mirror_bytes)
+        await jimg.write(0, jdata)
+        await jimg.close()
+        dr = ns.rbd.RBD(await rados.open_ioctx("rbd-dr"))
+        mirror = ns.rbd_mirror.RBDMirror(rbd, dr)
+        t1 = time.perf_counter()
+        shipped = await mirror.mirror_image("jimg")
+        t_mirror = time.perf_counter() - t1
+        copy = await dr.open("jimg")
+        if await copy.read(0, mirror_bytes) != jdata:
+            raise AssertionError("the mirrored image differs")
+        await copy.close()
+        record("block", t0, k0,
+               image_bytes + clone_write + bench_bytes + mirror_bytes,
+               import_s=t_import,
+               import_gib_s=image_bytes / t_import / 2**30,
+               imported=imported.get("imported"), exported=exported,
+               bench={k: bench.get(k) for k in (
+                   "ops", "seconds", "MiB_per_s", "lat_p50_ms",
+                   "lat_p99_ms")},
+               group_snaps=gsnaps, mirror_shipped=shipped,
+               mirror_s=t_mirror)
+
+        # 4. offline
+        t0, k0 = time.perf_counter(), ns.launches()
+        osdmap = rados.monc.osdmap
+        ec_id = pool_id("ecpool")
+        pg_num = osdmap.pools[ec_id].pg_num
+        expect = set()
+        for name in datas:
+            ps = ns.object_to_ps(name, pg_num)
+            _, _, acting, _ = osdmap.pg_to_up_acting(ec_id, ps)
+            for shard, osd in enumerate(acting):
+                if osd == victim:
+                    expect.add((ps, shard, name))
+        await cluster.kill_osd(victim)
+        listing = await _tool_out(ns.objectstore_tool, [
+            "--data-path", path(f"cluster/osd.{victim}"), "--op", "list"])
+        got = set()
+        for cid, objs in listing.items():
+            pool, _, rest = cid.partition(".")
+            if int(pool) != ec_id:
+                continue
+            ps = int(rest.split("s", 1)[0], 16)
+            for o in objs:
+                if o["name"] in datas:
+                    got.add((ps, o.get("shard"), o["name"]))
+        if got != expect or not expect:
+            raise AssertionError(f"objectstore list: {sorted(got)} != "
+                                 f"{sorted(expect)}")
+        mapfile = path("osdmap.bin")
+        with open(mapfile, "wb") as f:
+            f.write(ns.codec.encode(osdmap.to_dict()))
+        mapped = await _tool_out(ns.osdmaptool, [
+            mapfile, "--test-map-pgs", "--pool", str(ec_id)])
+        rows = mapped["pools"][str(ec_id)]
+        for ps in range(pg_num):
+            up, _, acting, _ = osdmap.pg_to_up_acting(ec_id, ps)
+            if (rows[str(ps)]["up"], rows[str(ps)]["acting"]) != \
+                    (up, acting):
+                raise AssertionError(f"osdmaptool PG {ps}: {rows[str(ps)]}")
+        spec = ns.dencoder._registry()["OSDMap"]
+        once = ns.codec.encode(spec["project"](osdmap))
+        again = ns.codec.encode(spec["project"](spec["roundtrip"](osdmap)))
+        if once != again:
+            raise AssertionError("the dencoder's OSDMap round trip differs")
+        await cluster.revive_osd(victim)
+        await until(lambda: victim in cluster.osds and
+                    rados.monc.osdmap.is_up(victim),
+                    f"osd.{victim} back up")
+        await until(lambda: pgs_clean(cluster.osds.values()),
+                    "clean PGs after the restart")
+        record("offline", t0, k0, victim=victim, shards_listed=len(got),
+               map_epoch=mapped["epoch"], pgs_mapped=len(rows),
+               osd_pg_count=mapped.get("osd_pg_count", {}).get(str(victim)),
+               dencoder_bytes=len(once))
+    finally:
+        if rados is not None:
+            await rados.shutdown()
+        await cluster.stop()
+        ns.reset_local_namespace()
+    return {"steps": steps, "seconds": time.perf_counter() - t_phase}
+
+
+def block_phase(dev) -> dict:
+    """Wave (k) on the port's dev cluster, its OSD daemons on the CUDA
+    device ``dev``, its stores in a temporary directory."""
+    import asyncio
+    import functools
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from ceph_tpu_torch import cli, dencoder, objectstore_tool, rbd_tool
+    from ceph_tpu_torch import vstart
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.msg import codec, reset_local_namespace
+    from ceph_tpu_torch.osd.pg import object_to_ps
+    from ceph_tpu_torch.placement import compiler
+    from ceph_tpu_torch.services import rbd, rbd_group, rbd_mirror
+    from ceph_tpu_torch.tools import osdmaptool
+
+    ns = SimpleNamespace(
+        DevCluster=functools.partial(vstart.DevCluster, device=dev),
+        SCALE_TEST_OVERRIDES=vstart.SCALE_TEST_OVERRIDES,
+        reset_local_namespace=reset_local_namespace, compiler=compiler,
+        cli=cli, rbd_tool=rbd_tool, objectstore_tool=objectstore_tool,
+        osdmaptool=osdmaptool, dencoder=dencoder, codec=codec, rbd=rbd,
+        rbd_group=rbd_group, rbd_mirror=rbd_mirror,
+        object_to_ps=object_to_ps, launches=lambda: dict(ck.LAUNCHES),
+        sync=torch.cuda.synchronize)
+    with tempfile.TemporaryDirectory() as d:
+        return asyncio.run(block_wave(ns, d))
 
 
 def main() -> int:
@@ -4250,7 +5175,49 @@ def main() -> int:
         raise AssertionError(f"the gateway phase took "
                              f"{rgw_run['seconds']:.1f} s")
 
-    # -- 11. result lines -----------------------------------------------------
+    # -- 11. multisite, counted ----------------------------------------------
+    # Wave (j): S3, Swift and file traffic replicated from zone a to zone
+    # b of a port realm, each zone's bodies in its own 8+4 pool
+    # (multisite_phase).  B1 carries zone a's COLD PUTs, zone b's tiering
+    # of the replicas and b's degraded GETs; the wave fails unless B1
+    # launched in its put-a, sync and degraded steps.
+    ck.reset_launch_counts()
+    multisite_run = multisite_phase(dev)
+    multisite_launches = counts()
+    log(f"[main path: multisite] launches {multisite_launches}; "
+        f"{len(multisite_run['steps'])} steps in "
+        f"{multisite_run['seconds']:.2f} s (budget "
+        f"{MULTISITE_BUDGET_S:.0f} s)")
+    if multisite_launches[B1] == 0:
+        raise AssertionError(f"kernel {B1} was not launched on the "
+                             f"multisite main path")
+    for name in ck.LAUNCHES:
+        main_launches[name] += multisite_launches[name]
+    if multisite_run["seconds"] > MULTISITE_BUDGET_S:
+        raise AssertionError(f"the multisite phase took "
+                             f"{multisite_run['seconds']:.1f} s")
+
+    # -- 12. the admin CLIs and block images, counted -------------------------
+    # Wave (k): the CLI's EC pool on twelve OSD daemons over durable
+    # stores, block images on a replicated pool, the offline tools
+    # (block_phase).  B1 carries the CLI's puts and its degraded gets; RBD
+    # launches nothing (its pools are replicated).
+    ck.reset_launch_counts()
+    block_run = block_phase(dev)
+    block_launches = counts()
+    log(f"[main path: block] launches {block_launches}; "
+        f"{len(block_run['steps'])} steps in {block_run['seconds']:.2f} s "
+        f"(budget {BLOCK_BUDGET_S:.0f} s)")
+    if block_launches[B1] == 0:
+        raise AssertionError(f"kernel {B1} was not launched on the "
+                             f"block/CLI main path")
+    for name in ck.LAUNCHES:
+        main_launches[name] += block_launches[name]
+    if block_run["seconds"] > BLOCK_BUDGET_S:
+        raise AssertionError(f"the block phase took "
+                             f"{block_run['seconds']:.1f} s")
+
+    # -- 13. result lines -----------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",

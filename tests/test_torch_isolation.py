@@ -706,12 +706,15 @@ def test_device_shard_cache_places_entries_on_its_slots():
 # -- the port's copies of reference modules -----------------------------------
 
 # Modules that equal their reference apart from imports and docstrings:
-# the S3 gateway (object layer, placement, front end, bucket policies, key
-# management, push endpoints), the manager, its modules and engines and
-# the load generator, the monitor
+# block images (journal, groups, mirroring, the write-back log), the
+# offline tools, the dencoder and the admin CLIs, multisite sync, Swift and
+# the file view of buckets, the S3 gateway (object layer, placement, front
+# end, bucket policies, key management, push endpoints), the manager, its
+# modules and engines and the load generator, the monitor
 # and the client, placement/, the OSD map and the OSD's host helpers, and
-# the earlier slices' copies.  mon/osd_monitor.py, services/mgr_modules.py
-# and testing/chaos.py each have a test of their departure below.
+# the earlier slices' copies.  mon/osd_monitor.py, services/mgr_modules.py,
+# testing/chaos.py, vstart.py and cli.py each have a test of their
+# departure below.
 COPIED = [
     "mon/__init__.py", "mon/store.py", "mon/service.py", "mon/paxos.py",
     "mon/election.py", "mon/sync.py", "mon/config_monitor.py",
@@ -731,7 +734,12 @@ COPIED = [
     "services/orchestrator.py", "services/mgr.py", "services/dashboard.py",
     "testing/loadgen.py", "services/iam.py", "services/kms.py",
     "services/rgw_push.py", "services/rgw.py", "services/rgw_zone.py",
-    "services/rgw_http.py",
+    "services/rgw_http.py", "services/rgw_sync.py", "services/rgw_file.py",
+    "services/swift.py", "objectstore_tool.py", "tools/__init__.py",
+    "tools/monmaptool.py", "tools/monstore_tool.py", "tools/osdmaptool.py",
+    "dencoder.py", "services/rbd_journal.py", "services/rbd.py",
+    "services/rbd_group.py", "services/rbd_mirror.py",
+    "services/rbd_pwl.py", "rbd_tool.py", "rgw_admin.py",
 ]
 COPIED_EARLIER = [
     "common/admin_socket.py", "common/backoff.py", "common/cache.py",
@@ -872,6 +880,37 @@ def test_osd_monitor_equals_its_reference_but_for_the_cpu_codec():
                           "ceph_tpu_torch.services.rgw",
                           "ceph_tpu_torch.store.types",
                           "ceph_tpu_torch.tools", "ceph_tpu_torch.vstart"}),
+    ("services/rgw_sync.py", {"ceph_tpu_torch.client.rados"}),
+    ("services/rgw_file.py", set()),
+    ("services/swift.py", {"ceph_tpu_torch.services.rgw"}),
+    ("objectstore_tool.py", {"ceph_tpu_torch.msg.codec",
+                             "ceph_tpu_torch.store.filestore"}),
+    ("tools/__init__.py", set()),
+    ("tools/monmaptool.py", set()),
+    ("tools/monstore_tool.py", set()),
+    ("tools/osdmaptool.py", {"ceph_tpu_torch.mon.store"}),
+    ("dencoder.py", {"ceph_tpu_torch.msg.message",
+                     "ceph_tpu_torch.osd.osd_map",
+                     "ceph_tpu_torch.osd.pg_log",
+                     "ceph_tpu_torch.placement.crush_map",
+                     "ceph_tpu_torch.store.object_store",
+                     "ceph_tpu_torch.store.txcodec",
+                     "ceph_tpu_torch.store.types"}),
+    ("services/rbd_journal.py", set()),
+    ("services/rbd.py", {"ceph_tpu_torch.client.object_cacher"}),
+    ("services/rbd_group.py", set()),
+    ("services/rbd_mirror.py", {"ceph_tpu_torch.services.rbd_journal"}),
+    ("services/rbd_pwl.py", set()),
+    ("cli.py", {"ceph_tpu_torch.client.fs", "ceph_tpu_torch.client.rados",
+                "ceph_tpu_torch.common.admin_socket",
+                "ceph_tpu_torch.common.events",
+                "ceph_tpu_torch.common.tracing", "ceph_tpu_torch.msg.codec",
+                "ceph_tpu_torch.services.volumes"}),
+    ("rbd_tool.py", {"ceph_tpu_torch.cli", "ceph_tpu_torch.client.rados",
+                     "ceph_tpu_torch.services.rbd_group"}),
+    ("rgw_admin.py", {"ceph_tpu_torch.cli", "ceph_tpu_torch.client.rados",
+                      "ceph_tpu_torch.services.rgw_sync",
+                      "ceph_tpu_torch.services.rgw_zone"}),
 ])
 def test_lazy_imports_name_the_port(rel, names):
     """The imports made inside functions (the monitor's admin socket, log
@@ -882,10 +921,12 @@ def test_lazy_imports_name_the_port(rel, names):
     the reaches of the mgr, the load generator and the drills into the
     gateway, block images, CephFS and tools, the gateway's reaches into
     its placement, policies, key management, push endpoints and
-    multisite sync) are the port's: the static scan above walks them too.
-    Those of ROADMAP A12.2b-A12.5 (``rgw_sync``, ``rbd``, ``client.fs``,
-    ``tools``) name modules the port has not yet;
-    ``test_later_slices_raise_until_they_land`` calls them."""
+    multisite sync, the offline tools' stores and codecs, the dencoder's
+    wire types, RBD's object cacher and journal, the CLIs' reaches into
+    each other, the client, tracing, admin socket and event journal) are
+    the port's: the static scan above walks them too.  Those of ROADMAP
+    A12.4 (``client.fs``, ``services.volumes``) name modules the port has
+    not yet; ``test_later_slices_raise_until_they_land`` calls them."""
     tree = ast.parse((REPO / "ceph_tpu_torch" / rel).read_text())
     lazy = {node.module for fn in ast.walk(tree)
             if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
@@ -903,13 +944,13 @@ class _DropDeviceDepartures(_Normalise):
 
     MESH = "ceph_tpu_torch.parallel.mesh"
 
-    def __init__(self, cls):
+    def __init__(self, *cls):
         self.cls = cls
         self.dropped = {"param": 0, "assign": 0, "keyword": 0, "import": 0,
                         "variant": 0, "mesh": 0}
 
     def visit_ClassDef(self, node):
-        if node.name == self.cls:
+        if node.name in self.cls:
             for fn in node.body:
                 if isinstance(fn, ast.FunctionDef) and \
                         fn.name == "__init__":
@@ -967,23 +1008,25 @@ class _DropDeviceDepartures(_Normalise):
 
 
 @pytest.mark.parametrize("rel,cls,dropped", [
-    ("osd/daemon.py", "OSDDaemon",
+    ("osd/daemon.py", ("OSDDaemon",),
      {"param": 1, "assign": 1, "keyword": 4, "import": 1, "variant": 2,
       "mesh": 3}),
-    ("vstart.py", "DevCluster",
-     {"param": 1, "assign": 1, "keyword": 1, "import": 0, "variant": 0,
+    ("vstart.py", ("DevCluster", "MultisiteRealm"),
+     {"param": 2, "assign": 2, "keyword": 2, "import": 0, "variant": 0,
       "mesh": 0}),
 ])
 def test_daemon_and_vstart_equal_their_references_but_for_the_device(
         rel, cls, dropped):
     """osd/daemon.py and vstart.py are their references but for the
-    departures ROADMAP Queue C lists: the ``device`` keyword and its uses,
-    the encode variant set through ``cuda_kernels``, and the daemon's
+    departures ROADMAP Queue C lists: the ``device`` keyword and its uses
+    (on ``DevCluster``, and on ``MultisiteRealm``, which hands it to each
+    zone's ``DevCluster``), the encode variant set through
+    ``cuda_kernels``, and the daemon's
     device pool and resident-cache sharding from the port's mesh
     (``local_devices(device=self.device)``, ``NamedSharding``,
     ``PartitionSpec``) in place of ``jax.devices()`` and
     ``jax.sharding``."""
-    drop = _DropDeviceDepartures(cls)
+    drop = _DropDeviceDepartures(*cls)
     port = drop.visit(ast.parse((REPO / "ceph_tpu_torch" / rel).read_text()))
     ref = _Normalise().visit(ast.parse((REPO / "ceph_tpu" / rel).read_text()))
     assert drop.dropped == dropped
@@ -1072,16 +1115,49 @@ class _DropChaosDevice(_Normalise):
 
 def test_chaos_equals_its_reference_but_for_the_device():
     """testing/chaos.py is its reference but for ``device=``: taken out
-    from ChaosHarness and the five drills that build a cluster (and their
-    helper), it is the reference."""
+    from ChaosHarness, the five drills that build a cluster (and their
+    helper) and the zone-loss drill that builds a realm, it is the
+    reference."""
     rel = "testing/chaos.py"
     drop = _DropChaosDevice()
     port = ast.dump(drop.visit(ast.parse(
         (REPO / "ceph_tpu_torch" / rel).read_text())))
-    assert drop.dropped == {"param": 7, "assign": 1, "keyword": 7}
+    assert drop.dropped == {"param": 8, "assign": 1, "keyword": 8}
     assert port == _normalised(REPO / "ceph_tpu" / rel)
     assert _normalised(REPO / "ceph_tpu_torch" / rel) != \
         _normalised(REPO / "ceph_tpu" / rel)
+
+
+class _NameToolsAsReference(_Normalise):
+    """The port's departure in cli.py taken out: ``_TOOLS``, the ``tool``
+    passthrough's table, names each offline tool's module as
+    ``ceph_tpu_torch.…`` where the reference names ``ceph_tpu.…``; each
+    value of that one table is counted."""
+
+    def __init__(self):
+        self.renamed = 0
+
+    def visit_Assign(self, node):
+        self.generic_visit(node)
+        if [ast.unparse(t) for t in node.targets] == ["_TOOLS"]:
+            for v in node.value.values:
+                v.value = self._ref(v.value)
+                self.renamed += 1
+        return node
+
+
+def test_cli_equals_its_reference_but_for_the_tool_table():
+    rel = "cli.py"
+    drop = _NameToolsAsReference()
+    port = ast.dump(drop.visit(ast.parse(
+        (REPO / "ceph_tpu_torch" / rel).read_text())))
+    assert drop.renamed == 4
+    assert port == _normalised(REPO / "ceph_tpu" / rel)
+    assert _normalised(REPO / "ceph_tpu_torch" / rel) != \
+        _normalised(REPO / "ceph_tpu" / rel)
+    from ceph_tpu_torch import cli
+
+    assert all(v.startswith("ceph_tpu_torch.") for v in cli._TOOLS.values())
 
 
 def _public(module):
@@ -1098,11 +1174,16 @@ def _public(module):
     "services/mgr.py", "services/dashboard.py", "testing/loadgen.py",
     "testing/chaos.py", "services/iam.py", "services/kms.py",
     "services/rgw_push.py", "services/rgw.py", "services/rgw_zone.py",
-    "services/rgw_http.py"])
+    "services/rgw_http.py", "services/rgw_sync.py", "services/rgw_file.py",
+    "services/swift.py", "objectstore_tool.py", "tools/monmaptool.py",
+    "tools/monstore_tool.py", "tools/osdmaptool.py", "dencoder.py",
+    "services/rbd_journal.py", "services/rbd.py", "services/rbd_group.py",
+    "services/rbd_mirror.py", "services/rbd_pwl.py", "cli.py",
+    "rbd_tool.py", "rgw_admin.py"])
 def test_public_names_equal_the_references(rel):
-    """Each module of the manager's and the gateway's slices defines the
-    reference's public classes and functions, the RBD and multisite paths
-    included (they raise until ROADMAP A12.2b/A12.3 land)."""
+    """Each module of the manager's, the gateway's and the block and CLI
+    slices defines the reference's public classes and functions
+    (tools/__init__.py defines none: COPIED holds it equal)."""
     import importlib
 
     name = rel[:-3].replace("/", ".")
@@ -1113,29 +1194,23 @@ def test_public_names_equal_the_references(rel):
 
 @pytest.mark.parametrize("pkg", ["services", "testing"])
 def test_package_exports_name_the_ports_modules(pkg):
-    """``testing`` exports what the reference's does; ``services`` the
-    reference's exports the port has (object classes, the mgr and the
-    gateway)."""
+    """``testing`` and ``services`` export what the references do: object
+    classes, the mgr, the gateway, block images and groups."""
     import importlib
 
     port = importlib.import_module(f"ceph_tpu_torch.{pkg}")
     ref = importlib.import_module(f"ceph_tpu.{pkg}")
-    want = set(ref.__all__) if pkg == "testing" else \
-        {"ClassRegistry", "ClsError", "Mgr", "RGWLite"}
-    assert set(port.__all__) == want and want <= set(ref.__all__)
+    assert port.__all__ == ref.__all__
     for n in port.__all__:
         assert getattr(port, n).__module__.startswith("ceph_tpu_torch."), n
 
 
-def test_later_slices_raise_until_they_land(monkeypatch):
-    """The lazy reaches into ROADMAP A12.2b-A12.5: RBD support's trash
-    purge (rbd), a due snapshot schedule (client.fs) and the gateway's sync
-    orchestrator (rgw_sync) raise ModuleNotFoundError naming the module.
-    The zone-loss drill now gets past the gateway (A12.2a) and stops at
-    the multisite realm's first zone, whose dev cluster takes no device
-    until A12.2b passes one through."""
-    from ceph_tpu_torch.services import mgr_modules, mgr_perf, rgw_zone
-    from ceph_tpu_torch.testing import chaos
+def test_later_slices_raise_until_they_land():
+    """The lazy reaches into ROADMAP A12.4: a due snapshot schedule and the
+    CLI's ``fs`` commands (``fs subvolume``, ``fs quota``) reach
+    ``client.fs`` and raise ModuleNotFoundError naming it."""
+    from ceph_tpu_torch import cli
+    from ceph_tpu_torch.services import mgr_modules
 
     class Mgr:
         name = "mgr.x"
@@ -1152,29 +1227,11 @@ def test_later_slices_raise_until_they_land(monkeypatch):
         m.monc = Monc()
         await mgr_modules.SnapSchedule(m).serve_once()
 
-    class Rbd(mgr_perf.RBDSupport):
-        async def _client(self):
-            raise AssertionError("purge reached the client first")
-
-    async def orchestrate():
-        rgw_zone.SyncOrchestrator(None, "earth", {})
-
-    calls = {
-        "ceph_tpu_torch.services.rbd":
-            Rbd(Mgr(), None)._purge_pool("rbd"),
-        "ceph_tpu_torch.client.fs": due_schedule(),
-        "ceph_tpu_torch.services.rgw_sync": orchestrate(),
-    }
-    for name, coro in calls.items():
+    args = cli.build_parser().parse_args(["fs", "subvolume", "ls"])
+    for coro in (due_schedule(), cli._fs_volumes(None, args, False)):
         with pytest.raises(ModuleNotFoundError) as e:
             asyncio.run(coro)
-        assert e.value.name == name
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device") as e:
-        asyncio.run(chaos.run_zone_loss_drill())
-    frames = [f.name for f in e.traceback]
-    assert "_boot_zone" in frames and "start_osd" in frames, frames
+        assert e.value.name == "ceph_tpu_torch.client.fs"
 
 
 # The manager's slice: a port DevCluster of one mon and three OSD daemons
@@ -1281,3 +1338,118 @@ asyncio.run(run())
 
 def test_gateway_runs_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_RGW_RUN)
+
+
+# Multisite, Swift, block images and the CLIs: a port realm of two zones
+# (one mon and three OSD daemons each, on the CPU) replicating a bucket
+# from a to b, a Swift PUT and GET through the TempAuth handshake on zone
+# a's gateway, an RBD image written and read back, and the CLI's
+# ``rados put``/``get`` through its argv parser into a k=2 m=1 pool.
+BLOCKED_MULTISITE_RUN = BLOCKER + r"""
+import asyncio, contextlib, io, os, tempfile
+import torch
+torch.cuda.is_available = lambda: False
+from ceph_tpu_torch import cli
+from ceph_tpu_torch.services import RBD
+from ceph_tpu_torch.services.swift import SwiftFrontend
+from ceph_tpu_torch.vstart import DevCluster, MultisiteRealm
+
+async def http(port, method, path, headers=None, body=b""):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    hdrs = {"host": "x", "content-length": str(len(body)),
+            "connection": "close", **(headers or {})}
+    head = "\r\n".join([f"{method} {path} HTTP/1.1"]
+                       + [f"{k}: {v}" for k, v in hdrs.items()])
+    writer.write(head.encode() + b"\r\n\r\n" + body)
+    raw = await reader.read()
+    writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    lines = head.decode().split("\r\n")
+    return (int(lines[0].split(" ")[1]),
+            {k.strip().lower(): v.strip() for k, _, v in
+             (ln.partition(":") for ln in lines[1:])}, payload)
+
+async def realm_and_swift():
+    realm = MultisiteRealm(("a", "b"), n_osds=3, device="cpu")
+    await realm.start()
+    try:
+        a, b = realm.zones["a"]["gw"], realm.zones["b"]["gw"]
+        await a.create_bucket("geo")
+        await a.put_object("geo", "k", b"x" * 5000)
+        loop = asyncio.get_running_loop()
+        end = loop.time() + 60
+        while True:
+            if realm.zones["b"]["orch"].agents:
+                lag = (await realm.lag())["b"]
+                if lag == {"entries": 0, "bytes": 0} and \
+                        "geo" in await b.list_buckets():
+                    break
+            assert loop.time() < end, "zone b never caught up"
+            await asyncio.sleep(0.05)
+        assert (await b.get_object("geo", "k"))["data"] == b"x" * 5000
+        users = realm.zones["a"]["users"]
+        bob = await users.create("bob")
+        fe = SwiftFrontend(a, users=users)
+        _, port = await fe.start()
+        try:
+            st, h, _ = await http(port, "GET", "/auth/v1.0", {
+                "x-auth-user": "bob:swift", "x-auth-key": bob["secret_key"]})
+            assert st == 200, st
+            tok = {"x-auth-token": h["x-auth-token"]}
+            acct = h["x-storage-url"].split("/v1/", 1)[1]
+            st, _, _ = await http(port, "PUT", f"/v1/{acct}/c", tok)
+            assert st in (201, 202), st
+            st, _, _ = await http(port, "PUT", f"/v1/{acct}/c/o", tok,
+                                  b"swift" * 999)
+            assert st == 201, st
+            st, _, got = await http(port, "GET", f"/v1/{acct}/c/o", tok)
+            assert st == 200 and got == b"swift" * 999
+        finally:
+            await fe.stop()
+    finally:
+        await realm.stop()
+
+async def block_and_cli():
+    cluster = DevCluster(n_mons=1, n_osds=3, device="cpu")
+    await cluster.start()
+    try:
+        rados = await cluster.client()
+        await rados.pool_create("rbd", pg_num=8)
+        rbd = RBD(await rados.open_ioctx("rbd"))
+        await rbd.create("img", 1 << 20, order=16)
+        img = await rbd.open("img")
+        await img.write(70000, b"block" * 4000)
+        assert await img.read(70000, 20000) == b"block" * 4000
+        await img.close()
+        await rados.shutdown()
+        with tempfile.TemporaryDirectory() as d:
+            conf = os.path.join(d, "c.json")
+            cluster.write_conf(conf)
+            src, dst = os.path.join(d, "in"), os.path.join(d, "out")
+            with open(src, "wb") as f:
+                f.write(os.urandom(9000))
+
+            async def ceph(*argv):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = await cli._run(cli.build_parser().parse_args(
+                        ["--conf", conf, *argv]))
+                assert rc == 0, (argv, buf.getvalue())
+
+            await ceph("osd", "erasure-code-profile", "set", "p", "k=2",
+                       "m=1", "plugin=jax_rs", "crush-failure-domain=osd")
+            await ceph("osd", "pool", "create", "ec", "--pg-num", "4",
+                       "--pool-type", "erasure", "--profile", "p")
+            await ceph("rados", "-p", "ec", "put", "o", src)
+            await ceph("rados", "-p", "ec", "get", "o", dst)
+            assert open(src, "rb").read() == open(dst, "rb").read()
+    finally:
+        await cluster.stop()
+
+asyncio.run(realm_and_swift())
+asyncio.run(block_and_cli())
+""" + CHECK
+
+
+def test_multisite_block_and_clis_run_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_MULTISITE_RUN)

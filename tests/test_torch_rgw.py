@@ -18,8 +18,12 @@ scenario saw must be equal across them:
   manifests, GC and lifecycle queues, the cold pool's objects).
 
 Ids that ``secrets`` mints (access keys, upload ids, the random half of
-version ids, GC tags, KMS keys and nonces) come from one seeded stream per
-calling module, reset before each run, so they are equal byte for byte.
+version ids, GC tags, KMS keys and nonces, image, group and snapshot ids,
+lock cookies, the rbd tool's bench offsets) come from one seeded stream
+per calling module, reset before each run, so they are equal byte for
+byte.  The tools' runs are recorded with their arguments, return codes
+and standard output, and the calls of background loops (sync agents,
+mirrors, lock renewals) are not recorded.
 Times are the wall clock's: epoch seconds, HTTP and ISO dates and the
 microsecond prefix of a version id are compared by shape only.  Calls are
 kept in the order they started, so concurrent requests compare by what
@@ -33,6 +37,7 @@ last test carries gateway state written by one package's ``RGWLite`` to
 the other's, both ways.
 """
 
+import argparse
 import ast
 import asyncio
 import contextlib
@@ -62,21 +67,45 @@ HEARTBEAT_GRACE = 3.0
 # -- twins: a reference test module with its imports named as a package ------
 
 
+class _OnCPU(functools.partial):
+    """A class called with ``device="cpu"``, its attributes its own."""
+
+    def __getattr__(self, name):
+        return getattr(self.func, name)
+
+
 def _cpu(obj):
-    """The port's daemons and dev clusters take ``device=``; the tests run
-    them on the CPU."""
-    return functools.partial(obj, device="cpu")
+    """The port's daemons, dev clusters and realms take ``device=``; the
+    tests run them on the CPU."""
+    return _OnCPU(obj, device="cpu")
+
+
+# TCP twins listen on ports of their own: a dev cluster's fixed
+# ``base_port`` moves by this much in each package's twin, away from the
+# reference test itself (which may run at the same time in another worker)
+# and from the other package's twin.
+PORT_SHIFT = {REF: 2000, PORT: 2500}
+ON_DEVICE = ("DevCluster", "OSDDaemon", "MultisiteRealm")
 
 
 class _Rename(ast.NodeTransformer):
     """Name the reference's imports as ``root``'s, bind ``tests.test_*``
-    names from the twin of that module, and follow each import of
-    ``DevCluster``/``OSDDaemon`` with ``__device__`` (the port's CPU
-    partial, the identity for the reference)."""
+    names from the twin of that module, follow each import of
+    ``DevCluster``/``OSDDaemon``/``MultisiteRealm`` with ``__device__``
+    (the port's CPU partial, the identity for the reference), and shift a
+    literal ``base_port=`` by ``PORT_SHIFT``."""
 
     def __init__(self, root):
         self.root = root
         self.depth = 0
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        for kw in node.keywords:
+            if kw.arg == "base_port" and isinstance(kw.value, ast.Constant):
+                kw.value = ast.Constant(kw.value.value
+                                        + PORT_SHIFT[self.root])
+        return node
 
     def _nested(self, node):
         self.depth += 1
@@ -107,7 +136,7 @@ class _Rename(ast.NodeTransformer):
                 one.body = [ast.ImportFrom(module=node.module, names=[a],
                                            level=0)]
             out.append(one)
-            if a.name in ("DevCluster", "OSDDaemon"):
+            if a.name in ON_DEVICE:
                 out.append(ast.parse(
                     f"{bound} = __device__({bound})").body[0])
         return out
@@ -175,14 +204,24 @@ _TIME_PATTERNS = [
      "<us-hex>"),
     # a port the system chose (listeners on port 0)
     (re.compile(r"(?<=127\.0\.0\.1:)\d+"), "<port>"),
+    # what a benchmark measured ("seconds": 0.041, "iops": 388.5, ...)
+    (re.compile(r'("(?:seconds|iops|MiB_per_s|lat_p50_ms|lat_p99_ms)": )'
+                r'[0-9.e+-]+'), r"\1<measured>"),
+    # a client instance's messenger nonce ("client.admin:<nonce>")
+    (re.compile(r"(?<=\bclient\.)([\w.-]+):\d+"), r"\1:<nonce>"),
     # epoch seconds, plain or zero-padded (GC queue keys)
     (re.compile(r"(?<![0-9A-Za-z.])0*1[5-9]\d{8}(\.\d+)?(e[+-]?\d+)?"
                 r"(?![0-9A-Za-z])"), "<t>"),
 ]
 
 
+_TMP: list = [None]
+
+
 def norm_text(s: str) -> str:
     s = s.replace("\\u0000", "\x00")      # JSON's escape of the NUL
+    if _TMP[0]:
+        s = s.replace(_TMP[0], "<tmp>")
     for pat, rep in _TIME_PATTERNS:
         s = pat.sub(rep, s)
     return s
@@ -256,15 +295,20 @@ def _top_level(what):
         _INNER.reset(token)
 
 
+# Results that name what the system chose: a front end's listening port.
+SHAPED = {"SwiftFrontend.start": lambda out: (out[0], "<port>")}
+
+
 def _recorded(what, fn):
     """``fn`` (a function or a coroutine function) recorded as ``what``."""
+    shape = SHAPED.get(what, lambda out: out)
     if inspect.iscoroutinefunction(fn):
         @functools.wraps(fn)
         async def call(*a, **kw):
             with _top_level(what) as done:
                 out = await fn(*a, **kw)
                 if done:
-                    done(out)
+                    done(shape(out))
                 return out
     else:
         @functools.wraps(fn)
@@ -272,7 +316,7 @@ def _recorded(what, fn):
             with _top_level(what) as done:
                 out = fn(*a, **kw)
                 if done:
-                    done(out)
+                    done(shape(out))
                 return out
     return call
 
@@ -287,7 +331,12 @@ async def dump_pools(rados):
     try:
         for pool in sorted(await rados.list_pools()):
             io = await rados.open_ioctx(pool)
-            for oid in sorted(await io.list_objects()):
+            try:
+                oids = await io.list_objects()
+            except Exception as e:       # a cephx cluster refuses pgls
+                out.append((pool, describe(e)))
+                continue
+            for oid in sorted(oids):
                 try:
                     omap = norm(await io.get_omap(oid))
                 except Exception as e:       # an EC pool keeps no omap
@@ -335,17 +384,20 @@ def _instrument_twin(mod):
 
 
 class _SeededSecrets:
-    """``secrets.token_*`` for the gateway's modules and the scenarios
-    themselves from one seeded stream per calling module (the package
-    prefix and a twin's prefix taken off its name); every other caller
-    (the mon's tickets, trace ids) keeps the system's randomness."""
+    """``secrets.token_*`` and ``secrets.SystemRandom`` for the gateway's,
+    block images' and CLIs' modules and the scenarios themselves from one
+    seeded stream per calling module (the package prefix and a twin's
+    prefix taken off its name); every other caller (the mon's tickets,
+    trace ids) keeps the system's randomness."""
 
     SEEDED = (".services.rgw", ".services.rgw_http", ".services.rgw_zone",
-              ".services.kms", "_twin_")
+              ".services.kms", ".services.rbd", ".cli", ".rbd_tool",
+              "_twin_")
 
     def __init__(self):
         self.streams: dict = {}
         self.token_bytes_sys = secrets.token_bytes
+        self.system_random_sys = secrets.SystemRandom
 
     def _rng(self):
         name = sys._getframe(2).f_globals.get("__name__", "")
@@ -371,16 +423,47 @@ class _SeededSecrets:
         return (self.token_bytes_sys(n) if rng is None
                 else rng.randbytes(n)).hex()
 
+    def system_random(self):
+        """``secrets.SystemRandom()``: a generator seeded from the
+        caller's stream (the rbd tool's bench offsets)."""
+        rng = self._rng()
+        return self.system_random_sys() if rng is None else \
+            random.Random(rng.getrandbits(64))
 
-GATEWAY = ("rgw", "rgw_zone", "rgw_push", "kms", "iam")
+
+GATEWAY = ("rgw", "rgw_zone", "rgw_push", "kms", "iam", "rgw_sync",
+           "swift", "rgw_file", "rbd", "rbd_journal", "rbd_group",
+           "rbd_mirror", "rbd_pwl", "../client.object_cacher")
+
+# The loops a service runs in the background (the mgr's report cycle,
+# which serves its modules: RBD support's trash purge), and the callbacks
+# a watch or notify runs: calls they make follow the clock, so none is
+# recorded.
+BACKGROUND = (("mgr", "Mgr", "report"),
+              ("rgw_sync", "RGWSyncAgent", "_run"),
+              ("rgw_zone", "SyncOrchestrator", "_run"),
+              ("rbd_mirror", "RBDMirror", "_run"),
+              ("rbd_mirror", "JournalReplayer", "_run"),
+              ("rbd", "Image", "_lock_notify"),
+              ("rbd", "Image", "_lock_renew_loop"),
+              ("rgw", "RGWLite", "_push_loop"))
+
+# The command-line tools: each run through ``main`` or ``_run`` is one
+# entry, with its arguments, return code and standard output.
+CLIS = ("cli", "rbd_tool", "rgw_admin", "objectstore_tool", "dencoder",
+        "tools.monmaptool", "tools.monstore_tool", "tools.osdmaptool")
 
 
 def _gateway_callables(root):
     """(owner, name, function) of every public function of the gateway's
-    object layer, placement, push endpoints, key management and bucket
-    policies, and every public coroutine method of their classes."""
+    object layer, placement, push endpoints, key management, bucket
+    policies, multisite sync, Swift, file view, block images and the
+    client's object cacher, and every public coroutine method of their
+    classes."""
     for modname in GATEWAY:
-        mod = importlib.import_module(f"{root}.services.{modname}")
+        mod = importlib.import_module(
+            f"{root}.{modname[3:]}" if modname.startswith("../")
+            else f"{root}.services.{modname}")
         for name, obj in list(vars(mod).items()):
             if name.startswith("_") or \
                     getattr(obj, "__module__", None) != mod.__name__:
@@ -394,6 +477,77 @@ def _gateway_callables(root):
                         yield obj, attr, fn
 
 
+def _unrecorded(fn):
+    """``fn`` (a coroutine function) with nothing it calls recorded."""
+    @functools.wraps(fn)
+    async def call(*a, **kw):
+        token = _INNER.set(True)
+        try:
+            return await fn(*a, **kw)
+        finally:
+            _INNER.reset(token)
+    return call
+
+
+class _Tee:
+    """A standard output that keeps a copy of what is written to it."""
+
+    def __init__(self, out):
+        self.out, self.seen = out, []
+
+    def write(self, s):
+        self.seen.append(s)
+        return self.out.write(s)
+
+    def __getattr__(self, name):
+        return getattr(self.out, name)
+
+
+def _cli_recorded(what, fn):
+    """A tool's ``main``/``_run`` recorded with its arguments, return code
+    and standard output."""
+    def args_of(a):
+        return [vars(x) if isinstance(x, argparse.Namespace) else x
+                for x in a]
+
+    @contextlib.contextmanager
+    def teed(a):
+        rec = _CURRENT[0]
+        if rec is None or _INNER.get():
+            yield None
+            return
+        slot = rec.open((what, norm(args_of(a))))
+        tee, token = _Tee(sys.stdout), _INNER.set(True)
+        sys.stdout = tee
+        try:
+            yield lambda rc: rec.close(slot, ("ok", norm(rc),
+                                              norm_text("".join(tee.seen))))
+        except BaseException as e:
+            rec.close(slot, describe(e))
+            raise
+        finally:
+            sys.stdout = tee.out
+            _INNER.reset(token)
+
+    if inspect.iscoroutinefunction(fn):
+        @functools.wraps(fn)
+        async def call(*a, **kw):
+            with teed(a) as done:
+                rc = await fn(*a, **kw)
+                if done:
+                    done(rc)
+                return rc
+    else:
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            with teed(a) as done:
+                rc = fn(*a, **kw)
+                if done:
+                    done(rc)
+                return rc
+    return call
+
+
 def run_recorded(root, fn, monkeypatch) -> list:
     """Call ``fn`` (a synchronous scenario) with the gateway of package
     ``root`` recorded; returns the transcript."""
@@ -401,6 +555,16 @@ def run_recorded(root, fn, monkeypatch) -> list:
     for owner, name, call in _gateway_callables(root):
         what = f"{owner.__name__.rsplit('.', 1)[-1]}.{name}"
         monkeypatch.setattr(owner, name, _recorded(what, call))
+    for modname, cls, meth in BACKGROUND:
+        owner = getattr(importlib.import_module(
+            f"{root}.services.{modname}"), cls)
+        monkeypatch.setattr(owner, meth, _unrecorded(vars(owner)[meth]))
+    for modname in CLIS:
+        mod = importlib.import_module(f"{root}.{modname}")
+        for name in ("main", "_run"):
+            if inspect.isfunction(vars(mod).get(name)):
+                monkeypatch.setattr(mod, name, _cli_recorded(
+                    f"{modname}.{name}", vars(mod)[name]))
     vstart = importlib.import_module(f"{root}.vstart")
     stop = vstart.DevCluster.stop
 
@@ -417,6 +581,7 @@ def run_recorded(root, fn, monkeypatch) -> list:
     seeded = _SeededSecrets()
     monkeypatch.setattr(secrets, "token_bytes", seeded.token_bytes)
     monkeypatch.setattr(secrets, "token_hex", seeded.token_hex)
+    monkeypatch.setattr(secrets, "SystemRandom", seeded.system_random)
     importlib.import_module(f"{root}.msg").reset_local_namespace()
     _CURRENT[0] = rec
     try:
@@ -456,12 +621,82 @@ def as_set(entries):
                    for e in entries for i in items(e)})
 
 
-def run_twin_scenario(ref, name, monkeypatch, timed=False):
+def _with_fixtures(fn, root, fixtures):
+    """``fn`` with the fixtures it names: ``tmp_path`` a directory of the
+    package's own under the test's (named ``<tmp>`` in the transcript),
+    ``capsys`` the test's, ``monkeypatch`` a fresh one undone after the
+    run, any other name (a parameter of the reference test) from
+    ``fixtures``."""
+    names = list(inspect.signature(fn).parameters)
+    if not names:
+        return fn
+
+    def call():
+        kw, mp = {}, None
+        for n in names:
+            if n == "tmp_path":
+                kw[n] = fixtures["tmp_path"] / root
+                kw[n].mkdir()
+                _TMP[0] = str(kw[n])
+            elif n == "monkeypatch":
+                kw[n] = mp = pytest.MonkeyPatch()
+            else:
+                kw[n] = fixtures[n]
+        if "capsys" in kw:
+            kw["capsys"].readouterr()
+        try:
+            fn(**kw)
+        finally:
+            _TMP[0] = None
+            if mp is not None:
+                mp.undo()
+
+    return call
+
+
+# The objects a background sync agent writes as it goes: the datalog a
+# zone keeps of what was applied to it and the agent's markers into its
+# source's datalog hold the agent's history, which the clock decides (an
+# object put and deleted before the agent looked is never replayed at
+# all; the scenario stops the agent once the objects agree, whichever
+# pass it was in).
+AGENT_HISTORY = re.compile(r"rgw\.bucket\.log\.|rgw\.sync\.status")
+
+
+def polls_collapsed(entries):
+    """A transcript whose scenario polls until a background loop has
+    caught up: each run of consecutive calls of one name (the polls) kept
+    as its last call, the one that saw the state the scenario waited
+    for, and the pools without ``AGENT_HISTORY`` objects."""
+    out = []
+    for e in entries:
+        if e[0] == "pools":
+            e = ["pools", [o for o in e[1]
+                           if not AGENT_HISTORY.match(o[1])]]
+        if out and e[0] != "pools" and out[-1][0] == e[0]:
+            out[-1] = e
+        else:
+            out.append(e)
+    return out
+
+
+def run_twin_scenario(ref, name, monkeypatch, timed=False, polled=False,
+                      compare=True, **fixtures):
     """The reference test ``ref::name`` on both packages, transcripts
-    equal (as sets where ``timed``)."""
-    out = {root: run_recorded(
-        root, getattr(twin(ref, root), name), monkeypatch)
-        for root in ROOTS}
+    equal (as sets where ``timed``, with its polls collapsed where
+    ``polled``; not compared where not ``compare``: a unit scenario that
+    calls nothing recorded, or one whose every output follows the clock,
+    holds its own assertions on both packages); ``fixtures`` hands the
+    test's ``tmp_path``, ``capsys`` and parameters on to a scenario that
+    takes them."""
+    out = {}
+    for root in ROOTS:
+        fn = _with_fixtures(getattr(twin(ref, root), name), root, fixtures)
+        out[root] = run_recorded(root, fn, monkeypatch)
+        if polled:
+            out[root] = polls_collapsed(out[root])
+    if not compare:
+        return out[REF]
     assert out[REF], "the scenario recorded nothing"
     if timed:
         assert as_set(out[REF]) == as_set(out[PORT])
