@@ -1,6 +1,6 @@
-"""Services on RADOS, as far as the port has them.
+"""Services on RADOS.
 
-Counterpart of ceph_tpu/services/__init__.py.  The port has:
+Counterpart of ceph_tpu/services/__init__.py:
 
 - ``services.cls`` — the object classes: methods run inside the OSD's op
   interpreter (reference src/cls + osd/ClassHandler.cc), which the OSD
@@ -22,10 +22,10 @@ Counterpart of ceph_tpu/services/__init__.py.  The port has:
   storage classes lifecycle transitions move data across (``rgw_zone``),
   the S3 REST front end with SigV4 (``rgw_http``), multisite sync
   (``rgw_sync``), the Swift front end (``swift``) and the NFS-style file
-  view of buckets (``rgw_file``).
-
-Still to come (ROADMAP A12.4): CephFS volumes (``volumes``, which the
-CLI's ``volume`` commands reach).
+  view of buckets (``rgw_file``);
+- ``services.volumes`` — CephFS subvolumes and subvolume groups (reference
+  src/pybind/mgr/volumes), which the CLI's ``fs subvolume`` commands
+  reach.
 """
 
 from ceph_tpu_torch.services.cls import ClassRegistry, ClsError

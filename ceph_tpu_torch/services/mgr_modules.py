@@ -1,11 +1,7 @@
 """Mgr module framework: balancer, pg_autoscaler, progress.
 
 Counterpart of ceph_tpu/services/mgr_modules.py: the same module over the
-port's imports.  Its one departure: ``SnapSchedule.serve_once`` imports
-``client.fs.FSError`` where a due schedule is about to mount the
-filesystem, not at the top of every cycle.  The port's CephFS client
-arrives with ROADMAP A12.4; until then a due snapshot schedule raises, and
-every other report cycle runs.
+port's imports.
 
 The reference manager embeds Python modules (src/mgr/ActivePyModules.cc;
 src/pybind/mgr/*) that observe cluster maps/stats and act through mon
@@ -485,6 +481,8 @@ class SnapSchedule(MgrModule):
         import asyncio
         import json
 
+        from ceph_tpu_torch.client.fs import FSError
+
         try:
             r = await self.mgr.monc.command("config-key ls")
         except (ConnectionError, asyncio.TimeoutError):
@@ -515,8 +513,6 @@ class SnapSchedule(MgrModule):
                 continue
             if now - self._last.get(path, 0.0) < period:
                 continue
-            from ceph_tpu_torch.client.fs import FSError
-
             try:
                 fs = await self._mount(str(spec.get("fs", "cephfs")))
                 await fs.mksnap(path, f"scheduled-{int(now * 1000)}")

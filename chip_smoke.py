@@ -253,7 +253,27 @@ and, phase by phase, raising on any failure:
     not launched in the ec-cli and degraded-cli steps, or if the phase
     outran its budget (120 s); its launches join the ``kernels`` line's
     counts;
-13. prints the ``kernels`` JSON line, the nvidia-smi line, and last
+13. runs CephFS (``cephfs_phase``, wave (l)) with the counts set to 0: 1
+    port mon and 12 port OSD daemons on the card (MemStores, the resident
+    shard cache), a replicated metadata pool and the 8+4 EC data pool (8
+    PGs each), port MDSs ``a`` (active) and ``b`` (standby) with 4 MiB
+    data blocks.  Write: a small tree and 16 seeded files of 16 MiB over 4
+    directories, written concurrently under their write caps, read back
+    exact with ``readdir`` and ``stat``; overwrite: 8 writes of 64 KiB at
+    odd offsets through read handles, which hold no cap, so each is the EC
+    backend's read-modify-write; degraded: one OSD killed and marked down,
+    every file exact, revived, PGs clean; failover: MDS ``a`` shut down,
+    ``b`` takes rank 0, a new mount reads every file exact and writes one
+    more; volumes: the CLI's ``fs subvolume create`` and ``fs quota set``,
+    4 files of 4 MiB in the subvolume exact and one past the quota refused
+    with EDQUOT; recover: the MDSs stopped, ``cephfs-journal-tool journal
+    inspect``, one directory's dentries removed and put back by
+    ``cephfs-data-scan scan``/``inject`` from the backtraces in the EC
+    pool, read exact through a new MDS.  One "[cephfs]" JSON line per
+    step; it fails on any difference, if B1 was not launched in the write,
+    overwrite, degraded and failover steps, or if the phase outran its
+    budget (120 s); its launches join the ``kernels`` line's counts;
+14. prints the ``kernels`` JSON line, the nvidia-smi line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without CUDA, or when the package is
@@ -3905,6 +3925,453 @@ def block_phase(dev) -> dict:
         return asyncio.run(block_wave(ns, d))
 
 
+# Wave (l): CephFS.  One port mon and twelve port OSD daemons on the card;
+# the filesystem's metadata pool is replicated (dirfrags and the journal
+# live in omap, which EC pools refuse) and its data pool is the 8+4 EC pool,
+# so every block flush, every write-through overwrite (the EC backend's
+# read-modify-write) and every degraded read of file data runs B1 on the
+# card.  Upstream Ceph adds an EC pool as a second data pool with
+# allow_ec_overwrites and a directory layout; the reference has neither,
+# so the wave makes the EC pool the filesystem's data pool.  The EC pools
+# refuse snap contexts, so this filesystem takes no snapshot here.
+CEPHFS_BUDGET_S = 120.0
+CEPHFS_DIRS = 4
+CEPHFS_FILES = 16
+CEPHFS_FILE_BYTES = 16 << 20
+CEPHFS_OVERWRITES = 8
+CEPHFS_OVERWRITE_BYTES = 64 << 10
+CEPHFS_VOLUME_FILES = 4
+CEPHFS_VOLUME_BYTES = 4 << 20
+CEPHFS_PG_NUM = 8
+CEPHFS_PROFILE = "wave-l"
+CEPHFS_OVERRIDES = {
+    "mon_osd_down_out_interval": 300.0,
+    "osd_ec_resident": True,
+    "mds_beacon_interval": 0.2,
+    "mds_beacon_grace": 2.0,
+}
+
+
+async def cephfs_wave(ns, store_dir: str, *, n_osds: int = CLUSTER_OSDS,
+                      ec_k: int = 8, ec_m: int = 4,
+                      files: int = CEPHFS_FILES,
+                      file_bytes: int = CEPHFS_FILE_BYTES,
+                      overwrites: int = CEPHFS_OVERWRITES,
+                      overwrite_bytes: int = CEPHFS_OVERWRITE_BYTES,
+                      volume_files: int = CEPHFS_VOLUME_FILES,
+                      volume_bytes: int = CEPHFS_VOLUME_BYTES,
+                      block_size: int = 1 << 22,
+                      victim: int = CLUSTER_VICTIM, need: tuple = (B1,),
+                      note=log) -> dict:
+    """Wave (l) over one package's ``ns``: ``DevCluster`` (a partial with
+    the device), ``fs`` (the CephFS client module), ``mds`` (the MDS
+    module), ``cli``, ``cephfs_journal_tool``, ``cephfs_data_scan``,
+    ``compiler``, ``reset_local_namespace``, ``SCALE_TEST_OVERRIDES``,
+    ``launches`` and ``sync``; ``store_dir`` holds the conf file the tools
+    read.
+
+    1 mon and ``n_osds`` OSD daemons (one per CRUSH host, MemStores, the
+    resident shard cache, scrub held by ``noscrub``), CRUSH's choose tries
+    at 100; a replicated metadata pool ``cephfs_meta`` and an erasure-coded
+    data pool ``cephfs_data`` (jax_rs ``ec_k`` + ``ec_m``), 8 PGs each;
+    MDS ``a`` active and ``b`` standby of ``block_size`` data blocks.
+    Steps, a "[cephfs]" JSON line each (wall seconds, bytes, GiB/s, B1/B2
+    launches):
+
+    1. boot: the pools, ``fs new``, both MDSs (``mds stat``: ``a`` active,
+       ``b`` standby), a client ``CephFS.connect`` and ``mount``;
+    2. write: a small tree, then ``files`` seeded files of ``file_bytes``
+       over ``CEPHFS_DIRS`` directories, written concurrently and closed
+       (each flushes its blocks under its write cap, a ``write_full`` per
+       block); every file read back exact (sha256, length), ``readdir``
+       and ``stat`` sizes;
+    3. overwrite: ``overwrites`` writes of ``overwrite_bytes`` at odd
+       offsets (never on a stripe boundary) through handles opened for
+       reading, which hold no write cap, so each goes straight to the data
+       pool at its offset: the EC backend's read-modify-write; every file
+       read back exact;
+    4. degraded: OSD ``victim`` killed and marked down (it holds a shard
+       of every PG), every file read back exact (decodes); revived, PGs
+       clean;
+    5. failover: MDS ``a`` shut down, ``b`` takes rank 0 (the seconds to
+       it recorded); a new mount (the client finds rank 0 in the FSMap,
+       as the reference's failover test does), ``readdir`` and every file
+       exact, one more file of ``file_bytes`` written and read back;
+    6. volumes: through the CLI's argv parser ``fs subvolume create`` (its
+       size a quota) and ``fs quota set`` on it (room for
+       ``volume_files`` files of ``volume_bytes``); those files written
+       into it and read back exact, one more refused with EDQUOT, ``fs
+       subvolume ls`` and ``fs quota get``;
+    7. recover: every MDS stopped; ``cephfs-journal-tool journal
+       inspect`` of rank 0 (OK); one directory's dentries removed from its
+       dirfrag; ``cephfs-data-scan scan`` (the sizes and backtraces it
+       reads from the EC pool) and ``inject`` (each lost file linked back
+       at its backtraced name); an MDS started, and the directory's files
+       are back under their names, every one exact.
+
+    The kernels of ``need`` must launch in steps 2-5.  Raises on any
+    failure; returns each step's record."""
+    import asyncio
+    import hashlib
+    import os
+
+    import numpy as np
+
+    liveness = {key: ns.SCALE_TEST_OVERRIDES[key] for key in CLUSTER_LIVENESS}
+    rng = np.random.default_rng(SEED)
+    steps: dict[str, dict] = {}
+    loop = asyncio.get_running_loop()
+    conf = os.path.join(store_dir, "cluster.json")
+
+    async def until(cond, what, timeout=RGW_WAIT_S, every=0.1):
+        deadline = loop.time() + timeout
+        while True:
+            got = cond()
+            if asyncio.iscoroutine(got):
+                got = await got
+            if got:
+                return got
+            if loop.time() > deadline:
+                raise AssertionError(f"no {what} in {timeout:.0f} s")
+            await asyncio.sleep(every)
+
+    def record(step, t0, k0, nbytes=0, launched=(), **kw):
+        ns.sync()
+        wall = time.perf_counter() - t0
+        k1 = ns.launches()
+        delta = {k: k1[k] - k0.get(k, 0) for k in k1
+                 if k1[k] != k0.get(k, 0)}
+        rec = {"step": step, "wall_s": wall, "bytes": nbytes,
+               "gib_s": nbytes / wall / 2**30 if nbytes else 0.0,
+               "b1_launches": delta.get(B1, 0),
+               "b2_launches": delta.get(B2, 0), **kw,
+               "kernel_launches": delta}
+        steps[step] = rec
+        note(f"[cephfs] {json.dumps(rec)}")
+        missing = [k for k in launched if not delta.get(k)]
+        if missing:
+            raise AssertionError(f"{step}: {missing} not launched")
+        return rec
+
+    async def command(prefix, **kw):
+        r = await rados.mon_command(prefix, timeout=RGW_WAIT_S, **kw)
+        if r["rc"] != 0:
+            raise AssertionError(f"{prefix}: {r}")
+        return r
+
+    def active(name):
+        pid = next(pid for pid, p in rados.monc.osdmap.pools.items()
+                   if p.name == name)
+        pg_num = rados.monc.osdmap.pools[pid].pg_num
+        return sum(1 for o in cluster.osds.values()
+                   for pgid, pg in o.pgs.items()
+                   if pgid.pool == pid and pg.is_primary
+                   and pg.state == "active") == pg_num
+
+    async def fs_summary(want):
+        """The filesystem's ``mds stat`` entry once ``want`` holds of it,
+        else None (for ``until``)."""
+        r = await command("mds stat")
+        s = r["data"]["filesystems"].get("cephfs", {})
+        return s if want(s) else None
+
+    def rank0(s):
+        return (s.get("active") or {}).get("name")
+
+    async def mount():
+        client = await ns.fs.CephFS.connect(rados)
+        await client.mount()
+        return client
+
+    def digest(data):
+        return len(data), hashlib.sha256(data).hexdigest()
+
+    async def read_all(client, step, paths=None):
+        """Every file of ``want`` (or of ``paths``) read back: raises
+        unless each is exact; returns the bytes read."""
+        bad, nbytes = [], 0
+        for p in (paths or want):
+            got = await client.read_file(p)
+            if digest(got) != digest(want[p]):
+                bad.append((p, len(got)))
+            nbytes += len(got)
+        if bad:
+            raise AssertionError(f"{step}: {len(bad)} files differ, first "
+                                 f"{bad[0]}")
+        return nbytes
+
+    async def listing(client):
+        """Each directory's names and the sizes its dentries and ``stat``
+        give, held to ``want``."""
+        for d in dir_names:
+            got = await client.readdir(d)
+            names = {f"{d}/{n}": int(e.get("size", 0))
+                     for n, e in got.items()}
+            expect = {p: len(v) for p, v in want.items()
+                      if p.rsplit("/", 1)[0] == d}
+            if names != expect:
+                raise AssertionError(f"readdir {d}: {sorted(names)} != "
+                                     f"{sorted(expect)}")
+        for p, data in want.items():
+            if int((await client.stat(p))["size"]) != len(data):
+                raise AssertionError(f"stat {p}")
+
+    t_phase = time.perf_counter()
+    ns.reset_local_namespace()
+    cluster = ns.DevCluster(n_mons=1, n_osds=n_osds, osds_per_host=1,
+                            overrides={**liveness, **CEPHFS_OVERRIDES})
+    rados = fs = None
+    dir_names = [f"/wave/d{i}" for i in range(CEPHFS_DIRS)]
+    want: dict[str, bytes] = {}
+    try:
+        # 1. boot
+        t0, k0 = time.perf_counter(), ns.launches()
+        await cluster.start()
+        rados = await cluster.client()
+        await command("osd set", flag="noscrub")
+        text = ns.compiler.decompile(rados.monc.osdmap.crush)
+        tunable = "tunable choose_total_tries 50\n"
+        await command("osd setcrushmap", map=text.replace(
+            tunable, f"tunable choose_total_tries {MAP_CHOOSE_TRIES}\n"))
+        await command("osd erasure-code-profile set", name=CEPHFS_PROFILE,
+                      profile={"plugin": "jax_rs", "k": str(ec_k),
+                               "m": str(ec_m),
+                               "crush-failure-domain": "osd"})
+        await rados.pool_create("cephfs_meta", pg_num=CEPHFS_PG_NUM)
+        await rados.pool_create("cephfs_data", pool_type="erasure",
+                                erasure_code_profile=CEPHFS_PROFILE,
+                                pg_num=CEPHFS_PG_NUM)
+        await until(lambda: active("cephfs_meta") and active("cephfs_data"),
+                    "active CephFS PGs")
+        await cluster.start_mds("a", block_size=block_size)
+        await cluster.start_mds("b", block_size=block_size)
+        summary = await until(lambda: fs_summary(
+            lambda s: rank0(s) == "a" and s.get("standby") == ["b"]),
+            "mds.a active with mds.b standby")
+        fs = await mount()
+        cluster.write_conf(conf)
+        record("boot", t0, k0, mons=len(cluster.mons),
+               osds=len(cluster.osds),
+               active=summary["active"]["name"],
+               standby=summary["standby"], block_size=fs.block_size,
+               data_pool=fs.data.pool_name)
+        if fs.block_size != block_size:
+            raise AssertionError(f"block size {fs.block_size}")
+
+        # 2. write
+        t0, k0 = time.perf_counter(), ns.launches()
+        await fs.mkdirs("/wave/tree/x/y")
+        for d in dir_names:
+            await fs.mkdirs(d)
+        for i in range(files):
+            want[f"{dir_names[i % CEPHFS_DIRS]}/f{i:02d}"] = \
+                rng.bytes(file_bytes)
+        t1 = time.perf_counter()
+        await asyncio.gather(*(fs.write_file(p, data)
+                               for p, data in want.items()))
+        t_write = time.perf_counter() - t1
+        k_write = ns.launches()
+        write_launches = {k: k_write[k] - k0.get(k, 0) for k in k_write
+                          if k_write[k] != k0.get(k, 0)}
+        t1 = time.perf_counter()
+        nbytes = await read_all(fs, "write")
+        t_read = time.perf_counter() - t1
+        await listing(fs)
+        tree = sorted(await fs.readdir("/wave"))
+        blocks = len([o for o in await fs.data.list_objects()
+                      if not o.endswith(".bt")])
+        record("write", t0, k0, nbytes, launched=need, write_s=t_write,
+               write_gib_s=nbytes / t_write / 2**30,
+               write_launches=write_launches, read_s=t_read,
+               read_gib_s=nbytes / t_read / 2**30, files=len(want),
+               tree=tree, data_objects=blocks)
+        if blocks != files * -(-file_bytes // block_size):
+            raise AssertionError(f"{blocks} data objects")
+
+        # 3. overwrite
+        t0, k0 = time.perf_counter(), ns.launches()
+        targets = list(want)[:overwrites]
+        offsets = [int(x) | 1 for x in rng.integers(
+            0, file_bytes - overwrite_bytes, len(targets))]
+        t1 = time.perf_counter()
+        for p, off in zip(targets, offsets):
+            patch = rng.bytes(overwrite_bytes)
+            fh = await fs.open(p, "r")
+            if fh._cap:
+                raise AssertionError(f"{p}: a read handle holds the cap")
+            await fh.write(patch, off)
+            await fh.close()
+            data = bytearray(want[p])
+            data[off:off + overwrite_bytes] = patch
+            want[p] = bytes(data)
+        t_write = time.perf_counter() - t1
+        k_write = ns.launches()
+        write_launches = {k: k_write[k] - k0.get(k, 0) for k in k_write
+                          if k_write[k] != k0.get(k, 0)}
+        nbytes = await read_all(fs, "overwrite")
+        await listing(fs)
+        record("overwrite", t0, k0, overwrites * overwrite_bytes,
+               launched=need, write_s=t_write,
+               write_launches=write_launches, offsets=offsets,
+               read_back=nbytes)
+        if not write_launches.get(B1) and B1 in need:
+            raise AssertionError("overwrite: the writes launched no B1")
+
+        # 4. degraded
+        t0, k0 = time.perf_counter(), ns.launches()
+        await cluster.kill_osd(victim)
+        await command("osd down", ids=[victim])
+        await until(lambda: not rados.monc.osdmap.is_up(victim),
+                    f"an epoch with osd.{victim} down")
+        t1 = time.perf_counter()
+        nbytes = await read_all(fs, "degraded")
+        t_read = time.perf_counter() - t1
+        k_read = ns.launches()
+        read_launches = {k: k_read[k] - k0.get(k, 0) for k in k_read
+                         if k_read[k] != k0.get(k, 0)}
+        await cluster.revive_osd(victim)
+        await until(lambda: victim in cluster.osds and
+                    rados.monc.osdmap.is_up(victim),
+                    f"osd.{victim} back up")
+        await until(lambda: pgs_clean(cluster.osds.values()),
+                    "clean PGs after the revive")
+        record("degraded", t0, k0, nbytes, read_s=t_read,
+               read_gib_s=nbytes / t_read / 2**30,
+               read_launches=read_launches, victim=victim)
+        if not read_launches.get(B1) and B1 in need:
+            raise AssertionError("degraded: the reads launched no B1")
+
+        # 5. failover
+        t0, k0 = time.perf_counter(), ns.launches()
+        await fs.unmount()
+        fs = None
+        await cluster.mdss.pop("a").shutdown()
+        t1 = time.perf_counter()
+        summary = await until(lambda: fs_summary(
+            lambda s: rank0(s) == "b"), "mds.b active")
+        takeover = time.perf_counter() - t1
+        fs = await mount()
+        await listing(fs)
+        nbytes = await read_all(fs, "failover")
+        late = f"{dir_names[1]}/late"
+        want[late] = rng.bytes(file_bytes)
+        await fs.write_file(late, want[late])
+        nbytes += await read_all(fs, "failover", [late])
+        record("failover", t0, k0, nbytes, launched=need,
+               takeover_s=takeover, active=summary["active"]["name"],
+               down=summary.get("down"))
+
+        # 6. volumes
+        t0, k0 = time.perf_counter(), ns.launches()
+        quota = volume_files * volume_bytes + 4096
+        created = await _tool_out(ns.cli, [
+            "--conf", conf, "--format", "json", "fs", "subvolume",
+            "create", "vol", "--size", str(2 * quota)])
+        vpath = created["path"]
+        await _tool_text(ns.cli, ["--conf", conf, "fs", "quota", "set",
+                                  vpath, "--max-bytes", str(quota)])
+        vol = {f"{vpath}/v{i}": rng.bytes(volume_bytes)
+               for i in range(volume_files)}
+        for p, data in vol.items():
+            await fs.write_file(p, data)
+        for p, data in vol.items():
+            if digest(await fs.read_file(p)) != digest(data):
+                raise AssertionError(f"volumes: {p} differs")
+        try:
+            await fs.write_file(f"{vpath}/over", rng.bytes(volume_bytes))
+        except ns.fs.FSError as e:
+            refused = e.rc
+        else:
+            refused = None
+        if refused != ns.mds.EDQUOT:
+            raise AssertionError(f"a write past the quota gave {refused}")
+        listed = await _tool_out(ns.cli, [
+            "--conf", conf, "--format", "json", "fs", "subvolume", "ls"])
+        got_quota = await _tool_out(ns.cli, [
+            "--conf", conf, "--format", "json", "fs", "quota", "get",
+            vpath])
+        record("volumes", t0, k0, volume_files * volume_bytes, path=vpath,
+               subvolumes=listed, refused=refused,
+               quota={"max_bytes": got_quota["quota"]["max_bytes"],
+                      "usage_bytes": got_quota["usage"]["bytes"]})
+        if listed != ["vol"] or got_quota["quota"]["max_bytes"] != quota:
+            raise AssertionError(f"volumes: {listed} {got_quota}")
+
+        # 7. recover
+        t0, k0 = time.perf_counter(), ns.launches()
+        lost_dir = dir_names[1]
+        lost_ino = int((await fs.stat(lost_dir))["ino"])
+        await fs.unmount()
+        fs = None
+        for name in list(cluster.mdss):
+            await cluster.mdss.pop(name).shutdown()
+        inspected = await _tool_out(ns.cephfs_journal_tool, [
+            "--conf", conf, "journal", "inspect", "--rank", "0"])
+        if inspected.get("overall") != "OK":
+            raise AssertionError(f"journal inspect: {inspected}")
+        meta = await rados.open_ioctx("cephfs_meta")
+        frag = ns.mds.dirfrag_oid(lost_ino)
+        lost = sorted(await meta.get_omap(frag))
+        await meta.rm_omap_keys(frag, lost)
+        scanned = await _tool_out(ns.cephfs_data_scan, [
+            "--conf", conf, "--block-size", str(block_size), "scan"])
+        injected = await _tool_out(ns.cephfs_data_scan, [
+            "--conf", conf, "--block-size", str(block_size), "inject"])
+        relinked = sorted(r["name"] for r in injected["linked"]
+                          if r["parent"] == lost_ino)
+        await cluster.start_mds("c", block_size=block_size)
+        await until(lambda: fs_summary(lambda s: rank0(s) == "c"),
+                    "mds.c active")
+        fs = await mount()
+        back = sorted(await fs.readdir(lost_dir))
+        paths = [p for p in want if p.rsplit("/", 1)[0] == lost_dir]
+        nbytes = await read_all(fs, "recover", paths)
+        record("recover", t0, k0, nbytes, journal={
+                   k: inspected.get(k) for k in ("overall", "events")},
+               lost=lost, scanned=len(scanned), relinked=relinked,
+               lost_found=injected["lost_found"], back=back)
+        if relinked != lost or back != lost or injected["lost_found"]:
+            raise AssertionError(f"recover: lost {lost}, relinked "
+                                 f"{relinked}, back {back}")
+    finally:
+        if fs is not None:
+            await fs.unmount()
+        if rados is not None:
+            await rados.shutdown()
+        await cluster.stop()
+        ns.reset_local_namespace()
+    return {"steps": steps, "seconds": time.perf_counter() - t_phase}
+
+
+def cephfs_phase(dev) -> dict:
+    """Wave (l) on the port's dev cluster, its OSD daemons on the CUDA
+    device ``dev``; the tools' conf file in a temporary directory."""
+    import asyncio
+    import functools
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from ceph_tpu_torch import cephfs_data_scan, cephfs_journal_tool, cli
+    from ceph_tpu_torch import vstart
+    from ceph_tpu_torch.client import fs
+    from ceph_tpu_torch.ec import cuda_kernels as ck
+    from ceph_tpu_torch.mds import daemon as mds
+    from ceph_tpu_torch.msg import reset_local_namespace
+    from ceph_tpu_torch.placement import compiler
+
+    ns = SimpleNamespace(
+        DevCluster=functools.partial(vstart.DevCluster, device=dev),
+        SCALE_TEST_OVERRIDES=vstart.SCALE_TEST_OVERRIDES,
+        reset_local_namespace=reset_local_namespace, compiler=compiler,
+        cli=cli, fs=fs, mds=mds, cephfs_journal_tool=cephfs_journal_tool,
+        cephfs_data_scan=cephfs_data_scan,
+        launches=lambda: dict(ck.LAUNCHES), sync=torch.cuda.synchronize)
+    with tempfile.TemporaryDirectory() as d:
+        return asyncio.run(cephfs_wave(ns, d))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5217,7 +5684,28 @@ def main() -> int:
         raise AssertionError(f"the block phase took "
                              f"{block_run['seconds']:.1f} s")
 
-    # -- 13. result lines -----------------------------------------------------
+    # -- 13. CephFS, counted --------------------------------------------------
+    # Wave (l): a filesystem whose data pool is the 8+4 pool on twelve OSD
+    # daemons (cephfs_phase).  B1 carries the block flushes, the
+    # write-through overwrites' read-modify-write, the degraded reads and
+    # the writes after the MDS failover; the wave fails unless B1 launched
+    # in each of those steps.
+    ck.reset_launch_counts()
+    cephfs_run = cephfs_phase(dev)
+    cephfs_launches = counts()
+    log(f"[main path: cephfs] launches {cephfs_launches}; "
+        f"{len(cephfs_run['steps'])} steps in {cephfs_run['seconds']:.2f} s "
+        f"(budget {CEPHFS_BUDGET_S:.0f} s)")
+    if cephfs_launches[B1] == 0:
+        raise AssertionError(f"kernel {B1} was not launched on the "
+                             f"CephFS main path")
+    for name in ck.LAUNCHES:
+        main_launches[name] += cephfs_launches[name]
+    if cephfs_run["seconds"] > CEPHFS_BUDGET_S:
+        raise AssertionError(f"the CephFS phase took "
+                             f"{cephfs_run['seconds']:.1f} s")
+
+    # -- 14. result lines -----------------------------------------------------
     replaces = {
         "gf2_apply_words": "ceph_tpu/ec/pallas_kernels.py:96",
         "gf2_apply_u8": "ceph_tpu/ec/pallas_kernels.py:199",

@@ -620,11 +620,10 @@ def test_make_ec_mesh_without_devices_raises_without_cuda(monkeypatch):
 
 def test_vstart_imports_no_mds_mgr_or_rgw():
     """The dev cluster's MDS, manager and gateway starters import their
-    modules lazily: importing vstart loads none of them.  The manager and
-    the gateway are the port's (the mgr with its dashboard and
-    orchestrator backend boots, reports and stops on the CPU; the gateway
-    serves a signed S3 round trip); the MDS starter raises
-    ModuleNotFoundError until ROADMAP A12.4 brings it."""
+    modules lazily: importing vstart loads none of them.  Each starts the
+    port's daemon on the CPU: the MDS takes rank 0 and serves a mount, the
+    mgr with its dashboard and orchestrator backend boots, reports and
+    stops, the gateway serves a signed S3 round trip."""
     script = r"""
 import asyncio, sys
 import ceph_tpu_torch.vstart as vstart
@@ -638,15 +637,10 @@ lazy = ("ceph_tpu_torch.mds", "ceph_tpu_torch.services.rgw_",
         "ceph_tpu_torch.services.mgr_")
 loaded = [m for m in sys.modules if m.startswith(lazy)]
 assert not loaded, loaded
-cluster = vstart.DevCluster(n_mons=1, n_osds=0, device="cpu")
-try:
-    asyncio.run(cluster.start_mds())
-except ModuleNotFoundError as e:
-    assert e.name.startswith("ceph_tpu_torch.mds"), e.name
-else:
-    raise SystemExit("start_mds ran")
 
 async def mgr():
+    from ceph_tpu_torch.client.fs import CephFS
+    from ceph_tpu_torch.mds import MDSDaemon
     from ceph_tpu_torch.testing.loadgen import S3Backend
 
     cluster = vstart.DevCluster(n_mons=1, n_osds=3, device="cpu")
@@ -666,9 +660,21 @@ async def mgr():
         await s3.ensure_bucket()
         await s3.put("k", b"v" * 100)
         assert await s3.get("k") == b"v" * 100
+        admin = await cluster.client()
+        for pool in ("cephfs_meta", "cephfs_data"):
+            await admin.pool_create(pool, pg_num=4)
+        mds = await cluster.start_mds(block_size=4096)
+        assert isinstance(mds, MDSDaemon) and cluster.mdss == {"a": mds}
+        fs = await CephFS.connect(admin)
+        await fs.mount()
+        await fs.write_file("/f", b"m" * 5000)
+        assert await fs.read_file("/f") == b"m" * 5000
+        await fs.unmount()
+        await admin.shutdown()
     finally:
         await cluster.stop()
     assert not cluster.mgrs and mgr.dashboard is None and not cluster.rgws
+    assert not cluster.mdss
 
 asyncio.run(mgr())
 print("vstart-ok")
@@ -706,15 +712,15 @@ def test_device_shard_cache_places_entries_on_its_slots():
 # -- the port's copies of reference modules -----------------------------------
 
 # Modules that equal their reference apart from imports and docstrings:
+# CephFS (the MDS, the client, volumes, the journal and data-scan tools),
 # block images (journal, groups, mirroring, the write-back log), the
 # offline tools, the dencoder and the admin CLIs, multisite sync, Swift and
 # the file view of buckets, the S3 gateway (object layer, placement, front
 # end, bucket policies, key management, push endpoints), the manager, its
 # modules and engines and the load generator, the monitor
 # and the client, placement/, the OSD map and the OSD's host helpers, and
-# the earlier slices' copies.  mon/osd_monitor.py, services/mgr_modules.py,
-# testing/chaos.py, vstart.py and cli.py each have a test of their
-# departure below.
+# the earlier slices' copies.  mon/osd_monitor.py, testing/chaos.py,
+# vstart.py and cli.py each have a test of their departure below.
 COPIED = [
     "mon/__init__.py", "mon/store.py", "mon/service.py", "mon/paxos.py",
     "mon/election.py", "mon/sync.py", "mon/config_monitor.py",
@@ -740,6 +746,9 @@ COPIED = [
     "dencoder.py", "services/rbd_journal.py", "services/rbd.py",
     "services/rbd_group.py", "services/rbd_mirror.py",
     "services/rbd_pwl.py", "rbd_tool.py", "rgw_admin.py",
+    "services/mgr_modules.py", "mds/__init__.py", "mds/daemon.py",
+    "client/fs.py", "services/volumes.py", "cephfs_journal_tool.py",
+    "cephfs_data_scan.py",
 ]
 COPIED_EARLIER = [
     "common/admin_socket.py", "common/backoff.py", "common/cache.py",
@@ -911,6 +920,16 @@ def test_osd_monitor_equals_its_reference_but_for_the_cpu_codec():
     ("rgw_admin.py", {"ceph_tpu_torch.cli", "ceph_tpu_torch.client.rados",
                       "ceph_tpu_torch.services.rgw_sync",
                       "ceph_tpu_torch.services.rgw_zone"}),
+    ("mds/__init__.py", set()),
+    ("mds/daemon.py", {"ceph_tpu_torch.common.admin_socket",
+                       "ceph_tpu_torch.common.log",
+                       "ceph_tpu_torch.placement.hashing"}),
+    ("client/fs.py", set()),
+    ("services/volumes.py", set()),
+    ("cephfs_journal_tool.py", {"ceph_tpu_torch.cli",
+                                "ceph_tpu_torch.msg.codec"}),
+    ("cephfs_data_scan.py", {"ceph_tpu_torch.cli",
+                             "ceph_tpu_torch.mds.daemon"}),
 ])
 def test_lazy_imports_name_the_port(rel, names):
     """The imports made inside functions (the monitor's admin socket, log
@@ -923,10 +942,10 @@ def test_lazy_imports_name_the_port(rel, names):
     its placement, policies, key management, push endpoints and
     multisite sync, the offline tools' stores and codecs, the dencoder's
     wire types, RBD's object cacher and journal, the CLIs' reaches into
-    each other, the client, tracing, admin socket and event journal) are
-    the port's: the static scan above walks them too.  Those of ROADMAP
-    A12.4 (``client.fs``, ``services.volumes``) name modules the port has
-    not yet; ``test_later_slices_raise_until_they_land`` calls them."""
+    each other, the client, tracing, admin socket and event journal, the
+    MDS's admin socket, log ring and dentry hash, the CephFS tools' conf
+    loader, codec and dirfrag names) are the port's: the static scan above
+    walks them too."""
     tree = ast.parse((REPO / "ceph_tpu_torch" / rel).read_text())
     lazy = {node.module for fn in ast.walk(tree)
             if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
@@ -1031,42 +1050,6 @@ def test_daemon_and_vstart_equal_their_references_but_for_the_device(
     ref = _Normalise().visit(ast.parse((REPO / "ceph_tpu" / rel).read_text()))
     assert drop.dropped == dropped
     assert ast.dump(port) == ast.dump(ref)
-    assert _normalised(REPO / "ceph_tpu_torch" / rel) != \
-        _normalised(REPO / "ceph_tpu" / rel)
-
-
-class _MoveFsImportBack(_Normalise):
-    """The port's departure in services/mgr_modules.py taken out:
-    ``SnapSchedule.serve_once`` imports ``client.fs.FSError`` inside its
-    loop, where a due schedule mounts the filesystem; the reference imports
-    it at the top of every cycle, after ``import json``."""
-
-    def __init__(self):
-        self.moved = 0
-
-    def visit_AsyncFunctionDef(self, node):
-        if node.name == "serve_once":
-            for loop in [n for n in node.body if isinstance(n, ast.For)]:
-                for i, st in enumerate(loop.body):
-                    if isinstance(st, ast.ImportFrom) and \
-                            st.module == "ceph_tpu_torch.client.fs":
-                        del loop.body[i]
-                        at = [j for j, s in enumerate(node.body)
-                              if isinstance(s, ast.Import)
-                              and s.names[0].name == "json"][0]
-                        node.body.insert(at + 1, st)
-                        self.moved += 1
-                        break
-        return self._strip(node)
-
-
-def test_mgr_modules_equals_its_reference_but_for_the_fs_import():
-    rel = "services/mgr_modules.py"
-    move = _MoveFsImportBack()
-    port = ast.dump(move.visit(ast.parse(
-        (REPO / "ceph_tpu_torch" / rel).read_text())))
-    assert move.moved == 1
-    assert port == _normalised(REPO / "ceph_tpu" / rel)
     assert _normalised(REPO / "ceph_tpu_torch" / rel) != \
         _normalised(REPO / "ceph_tpu" / rel)
 
@@ -1179,11 +1162,14 @@ def _public(module):
     "tools/monstore_tool.py", "tools/osdmaptool.py", "dencoder.py",
     "services/rbd_journal.py", "services/rbd.py", "services/rbd_group.py",
     "services/rbd_mirror.py", "services/rbd_pwl.py", "cli.py",
-    "rbd_tool.py", "rgw_admin.py"])
+    "rbd_tool.py", "rgw_admin.py", "mds/daemon.py", "client/fs.py",
+    "services/volumes.py", "cephfs_journal_tool.py",
+    "cephfs_data_scan.py"])
 def test_public_names_equal_the_references(rel):
-    """Each module of the manager's, the gateway's and the block and CLI
-    slices defines the reference's public classes and functions
-    (tools/__init__.py defines none: COPIED holds it equal)."""
+    """Each module of the manager's, the gateway's, the block and CLI and
+    the CephFS slices defines the reference's public classes and functions
+    (tools/__init__.py and mds/__init__.py define none: COPIED holds them
+    equal)."""
     import importlib
 
     name = rel[:-3].replace("/", ".")
@@ -1205,33 +1191,81 @@ def test_package_exports_name_the_ports_modules(pkg):
         assert getattr(port, n).__module__.startswith("ceph_tpu_torch."), n
 
 
-def test_later_slices_raise_until_they_land():
-    """The lazy reaches into ROADMAP A12.4: a due snapshot schedule and the
-    CLI's ``fs`` commands (``fs subvolume``, ``fs quota``) reach
-    ``client.fs`` and raise ModuleNotFoundError naming it."""
-    from ceph_tpu_torch import cli
-    from ceph_tpu_torch.services import mgr_modules
+async def _schedule_and_subvolumes(root):
+    """On package ``root``'s dev cluster (one mon, three OSD daemons, an
+    MDS): the snapshot schedule module run twice on a schedule due now
+    (one snapshot; not due again within its period), then ``fs subvolume
+    create`` and ``ls`` through the CLI's handler."""
+    import contextlib
+    import importlib
+    import io
+    import json
 
-    class Mgr:
-        name = "mgr.x"
-        conf = None
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
 
-    async def due_schedule():
-        class Monc:
-            async def command(self, cmd, **kw):
-                if cmd == "config-key ls":
-                    return {"rc": 0, "data": ["snap_sched/a"]}
-                return {"rc": 0, "data": '{"period": 1.0}'}
+    device = {"device": "cpu"} if root == "ceph_tpu_torch" else {}
+    mod("msg").reset_local_namespace()
+    cluster = mod("vstart").DevCluster(n_mons=1, n_osds=3, **device)
+    await cluster.start()
+    try:
+        rados = await cluster.client()
+        for pool in ("cephfs_meta", "cephfs_data"):
+            await rados.pool_create(pool, pg_num=4)
+        await cluster.start_mds(block_size=4096)
+        fs = await mod("client.fs").CephFS.connect(rados)
+        await fs.mount()
+        await fs.mkdirs("/data")
+        await fs.write_file("/data/f", b"x" * 5000)
+        r = await rados.mon_command(
+            "config-key set", key="snap_sched/data",
+            value=json.dumps({"period": 3600.0, "retain": 2}))
+        assert r["rc"] == 0, r
 
-        m = Mgr()
-        m.monc = Monc()
-        await mgr_modules.SnapSchedule(m).serve_once()
+        class Mgr:
+            name = "client.admin"
+            conf = cluster.conf_for("client.admin")
+            monc = rados.monc
 
-    args = cli.build_parser().parse_args(["fs", "subvolume", "ls"])
-    for coro in (due_schedule(), cli._fs_volumes(None, args, False)):
-        with pytest.raises(ModuleNotFoundError) as e:
-            asyncio.run(coro)
-        assert e.value.name == "ceph_tpu_torch.client.fs"
+        sched = mod("services.mgr_modules").SnapSchedule(Mgr())
+        await sched.serve_once()
+        await sched.serve_once()
+        snaps = sorted(await fs.listsnaps("/data"))
+        in_snap = await fs.read_file(f"/data/.snap/{snaps[0]}/f")
+        status = dict(sched._status["/data"])
+        await sched.stop()
+        cli = mod("cli")
+        out = {}
+        for argv in (["fs", "subvolume", "create", "sv", "--size", "65536"],
+                     ["fs", "subvolume", "ls"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = await cli._fs_volumes(
+                    rados, cli.build_parser().parse_args(argv), True)
+            out[argv[2]] = (rc, json.loads(buf.getvalue()))
+        await fs.unmount()
+        await rados.shutdown()
+        return {"snaps": [n.split("-")[0] for n in snaps],
+                "in_snap": in_snap, "last": status.pop("last") > 0,
+                "status": status, "volumes": out}
+    finally:
+        await cluster.stop()
+        mod("msg").reset_local_namespace()
+
+
+def test_snap_schedule_and_subvolumes_answer_on_both_packages():
+    """The lazy reaches that waited for CephFS: a due snapshot schedule
+    (the mgr's ``SnapSchedule``, which mounts the filesystem) takes one
+    snapshot and keeps it, and the CLI's ``fs subvolume`` handler creates
+    and lists a subvolume; both packages give equal results."""
+    port = asyncio.run(_schedule_and_subvolumes("ceph_tpu_torch"))
+    ref = asyncio.run(_schedule_and_subvolumes("ceph_tpu"))
+    assert port == ref
+    assert port["snaps"] == ["scheduled"] and port["in_snap"] == b"x" * 5000
+    assert port["status"] == {"period": 3600.0, "retain": 2,
+                              "scheduled_snaps": 1}
+    assert port["volumes"] == {
+        "create": (0, {"path": "/volumes/_nogroup/sv"}), "ls": (0, ["sv"])}
 
 
 # The manager's slice: a port DevCluster of one mon and three OSD daemons
@@ -1453,3 +1487,87 @@ asyncio.run(block_and_cli())
 
 def test_multisite_block_and_clis_run_with_jax_and_ceph_tpu_blocked():
     _run_blocked(BLOCKED_MULTISITE_RUN)
+
+
+# CephFS: a port DevCluster of one mon and three OSD daemons on the CPU
+# with a k=2 m=1 erasure-coded data pool and two MDSs: a file written and
+# read through a mount, the active MDS shut down and its standby taking
+# rank 0, the file read through a new mount, ``fs subvolume create``
+# through the CLI's handler, and ``cephfs-data-scan scan`` finding the
+# file's size and backtrace in the EC pool.
+BLOCKED_CEPHFS_RUN = BLOCKER + r"""
+import asyncio, contextlib, io, json, os, tempfile
+import torch
+torch.cuda.is_available = lambda: False
+from ceph_tpu_torch import cephfs_data_scan, cli
+from ceph_tpu_torch.client.fs import CephFS
+from ceph_tpu_torch.vstart import DevCluster
+
+async def active_is(rados, name):
+    loop = asyncio.get_running_loop()
+    end = loop.time() + 60
+    while True:
+        r = await rados.mon_command("mds stat")
+        act = r["data"]["filesystems"]["cephfs"]["active"]
+        if act and act["name"] == name:
+            return
+        assert loop.time() < end, r
+        await asyncio.sleep(0.1)
+
+async def run():
+    cluster = DevCluster(n_mons=1, n_osds=3, device="cpu", overrides={
+        "mds_beacon_interval": 0.1, "mds_beacon_grace": 1.0})
+    await cluster.start()
+    try:
+        rados = await cluster.client()
+        r = await rados.mon_command("osd erasure-code-profile set", name="p",
+                                    profile={"plugin": "jax_rs", "k": "2",
+                                             "m": "1",
+                                             "crush-failure-domain": "osd"})
+        assert r["rc"] == 0, r
+        await rados.pool_create("cephfs_meta", pg_num=4)
+        await rados.pool_create("cephfs_data", pool_type="erasure",
+                                erasure_code_profile="p", pg_num=4)
+        await cluster.start_mds("a", block_size=4096)
+        await active_is(rados, "a")
+        await cluster.start_mds("b", block_size=4096)
+        fs = await CephFS.connect(rados)
+        await fs.mount()
+        await fs.mkdirs("/d")
+        data = os.urandom(10000)
+        await fs.write_file("/d/f", data)
+        assert await fs.read_file("/d/f") == data
+        await fs.unmount()
+        await cluster.mdss.pop("a").shutdown()
+        await active_is(rados, "b")
+        fs = await CephFS.connect(rados)
+        await fs.mount()
+        assert await fs.read_file("/d/f") == data
+        args = cli.build_parser().parse_args(["fs", "subvolume", "create",
+                                              "sv"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert await cli._fs_volumes(rados, args, True) == 0
+        assert "sv" in await fs.readdir("/volumes/_nogroup")
+        await fs.unmount()
+        with tempfile.TemporaryDirectory() as d:
+            conf = os.path.join(d, "c.json")
+            cluster.write_conf(conf)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = await cephfs_data_scan._run(
+                    cephfs_data_scan.build_parser().parse_args(
+                        ["--conf", conf, "--block-size", "4096", "scan"]))
+            assert rc == 0
+            rep = json.loads(buf.getvalue())
+            assert [(r["name"], r["size"]) for r in rep.values()
+                    if r["name"] == "f"] == [("f", 10000)], rep
+        await rados.shutdown()
+    finally:
+        await cluster.stop()
+
+asyncio.run(run())
+""" + CHECK
+
+
+def test_cephfs_runs_with_jax_and_ceph_tpu_blocked():
+    _run_blocked(BLOCKED_CEPHFS_RUN)

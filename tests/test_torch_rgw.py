@@ -47,6 +47,7 @@ import hashlib
 import importlib
 import inspect
 import pathlib
+import pkgutil
 import random
 import re
 import secrets
@@ -258,10 +259,12 @@ def describe(e: BaseException):
 
 
 class Transcript:
-    """What one run saw, kept in the order each call started."""
+    """What one run saw, kept in the order each call started; ``keep`` is
+    how the pool dump keeps an object's data, xattrs and omap."""
 
-    def __init__(self):
+    def __init__(self, keep=norm):
         self.entries: list = []
+        self.keep = keep
 
     def open(self, what):
         self.entries.append([what, "<pending>"])
@@ -338,12 +341,13 @@ async def dump_pools(rados):
                 continue
             for oid in sorted(oids):
                 try:
-                    omap = norm(await io.get_omap(oid))
+                    omap = rec.keep(await io.get_omap(oid))
                 except Exception as e:       # an EC pool keeps no omap
                     omap = describe(e)
                 size = (await io.stat(oid))["size"]
-                out.append((pool, norm(oid), norm(await io.read(oid, size)),
-                            norm(await io.get_xattrs(oid)), omap))
+                out.append((pool, norm(oid),
+                            rec.keep(await io.read(oid, size)),
+                            rec.keep(await io.get_xattrs(oid)), omap))
     finally:
         _INNER.reset(token)
     rec.close(rec.open("pools"), out)
@@ -392,11 +396,12 @@ class _SeededSecrets:
 
     SEEDED = (".services.rgw", ".services.rgw_http", ".services.rgw_zone",
               ".services.kms", ".services.rbd", ".cli", ".rbd_tool",
-              "_twin_")
+              ".mds.daemon", ".client.fs", "_twin_")
 
     def __init__(self):
         self.streams: dict = {}
         self.token_bytes_sys = secrets.token_bytes
+        self.randbits_sys = secrets.randbits
         self.system_random_sys = secrets.SystemRandom
 
     def _rng(self):
@@ -423,6 +428,11 @@ class _SeededSecrets:
         return (self.token_bytes_sys(n) if rng is None
                 else rng.randbytes(n)).hex()
 
+    def randbits(self, k):
+        """``secrets.randbits``: a CephFS client's tid space."""
+        rng = self._rng()
+        return self.randbits_sys(k) if rng is None else rng.getrandbits(k)
+
     def system_random(self):
         """``secrets.SystemRandom()``: a generator seeded from the
         caller's stream (the rbd tool's bench offsets)."""
@@ -433,7 +443,8 @@ class _SeededSecrets:
 
 GATEWAY = ("rgw", "rgw_zone", "rgw_push", "kms", "iam", "rgw_sync",
            "swift", "rgw_file", "rbd", "rbd_journal", "rbd_group",
-           "rbd_mirror", "rbd_pwl", "../client.object_cacher")
+           "rbd_mirror", "rbd_pwl", "volumes", "../client.object_cacher",
+           "../client.fs")
 
 # The loops a service runs in the background (the mgr's report cycle,
 # which serves its modules: RBD support's trash purge), and the callbacks
@@ -451,15 +462,16 @@ BACKGROUND = (("mgr", "Mgr", "report"),
 # The command-line tools: each run through ``main`` or ``_run`` is one
 # entry, with its arguments, return code and standard output.
 CLIS = ("cli", "rbd_tool", "rgw_admin", "objectstore_tool", "dencoder",
-        "tools.monmaptool", "tools.monstore_tool", "tools.osdmaptool")
+        "tools.monmaptool", "tools.monstore_tool", "tools.osdmaptool",
+        "cephfs_journal_tool", "cephfs_data_scan")
 
 
 def _gateway_callables(root):
     """(owner, name, function) of every public function of the gateway's
     object layer, placement, push endpoints, key management, bucket
-    policies, multisite sync, Swift, file view, block images and the
-    client's object cacher, and every public coroutine method of their
-    classes."""
+    policies, multisite sync, Swift, file view, block images, CephFS
+    volumes, the client's object cacher and the CephFS client, and every
+    public coroutine method of their classes but a messenger's hooks."""
     for modname in GATEWAY:
         mod = importlib.import_module(
             f"{root}.{modname[3:]}" if modname.startswith("../")
@@ -472,7 +484,9 @@ def _gateway_callables(root):
                 yield mod, name, obj
             elif isinstance(obj, type):
                 for attr, fn in list(vars(obj).items()):
-                    if not attr.startswith("_") and \
+                    # a messenger's dispatch hook runs on the messenger's
+                    # clock, not the scenario's
+                    if not attr.startswith(("_", "ms_")) and \
                             inspect.iscoroutinefunction(fn):
                         yield obj, attr, fn
 
@@ -548,10 +562,28 @@ def _cli_recorded(what, fn):
     return call
 
 
-def run_recorded(root, fn, monkeypatch) -> list:
+@functools.lru_cache(maxsize=None)
+def _import_all(root):
+    """Every module of package ``root``, imported once per process before
+    anything is recorded.  A module first imported while ``run_recorded``'s
+    wrappers are in place binds a wrapper for good wherever it imports a
+    recorded function by name: the port's ``rgw_http``, first imported by
+    a scenario that reached it lazily (``DevCluster.start_rgw`` and the
+    load generator's ``S3Backend`` import it on first use), kept
+    ``rgw.sse_check``'s, and every later HEAD through the front end
+    recorded a call the reference's did not."""
+    pkg = importlib.import_module(root)
+    for mod in pkgutil.walk_packages(pkg.__path__, root + "."):
+        importlib.import_module(mod.name)
+
+
+def run_recorded(root, fn, monkeypatch, keep=norm, mds_first=False) -> list:
     """Call ``fn`` (a synchronous scenario) with the gateway of package
-    ``root`` recorded; returns the transcript."""
-    rec = Transcript()
+    ``root`` recorded; returns the transcript (its pool dumps as
+    ``Transcript`` says, each taken once the cluster's MDSs have shut down
+    where ``mds_first``)."""
+    _import_all(root)
+    rec = Transcript(keep)
     for owner, name, call in _gateway_callables(root):
         what = f"{owner.__name__.rsplit('.', 1)[-1]}.{name}"
         monkeypatch.setattr(owner, name, _recorded(what, call))
@@ -569,6 +601,10 @@ def run_recorded(root, fn, monkeypatch) -> list:
     stop = vstart.DevCluster.stop
 
     async def cluster_stop(self):
+        if mds_first:
+            for mds in self.mdss.values():
+                await mds.shutdown()
+            self.mdss.clear()
         if self.mons:
             rados = await self.client()
             try:
@@ -581,6 +617,7 @@ def run_recorded(root, fn, monkeypatch) -> list:
     seeded = _SeededSecrets()
     monkeypatch.setattr(secrets, "token_bytes", seeded.token_bytes)
     monkeypatch.setattr(secrets, "token_hex", seeded.token_hex)
+    monkeypatch.setattr(secrets, "randbits", seeded.randbits)
     monkeypatch.setattr(secrets, "SystemRandom", seeded.system_random)
     importlib.import_module(f"{root}.msg").reset_local_namespace()
     _CURRENT[0] = rec
@@ -595,6 +632,10 @@ def run_recorded(root, fn, monkeypatch) -> list:
 
 def assert_same_transcript(ref, port):
     for i, (a, b) in enumerate(zip(ref, port)):
+        if a != b and a[0] == b[0] == "pools":
+            # name the first object that differs, not the whole dump
+            a, b = next((x, y) for x, y in zip(a[1] + [None],
+                                                b[1] + [None]) if x != y)
         assert a == b, f"entry {i} differs:\n ref  {a!r}\n port {b!r}"
     assert len(ref) == len(port), (len(ref), len(port))
 
@@ -681,18 +722,20 @@ def polls_collapsed(entries):
 
 
 def run_twin_scenario(ref, name, monkeypatch, timed=False, polled=False,
-                      compare=True, **fixtures):
+                      compare=True, keep=norm, mds_first=False,
+                      **fixtures):
     """The reference test ``ref::name`` on both packages, transcripts
     equal (as sets where ``timed``, with its polls collapsed where
     ``polled``; not compared where not ``compare``: a unit scenario that
     calls nothing recorded, or one whose every output follows the clock,
-    holds its own assertions on both packages); ``fixtures`` hands the
-    test's ``tmp_path``, ``capsys`` and parameters on to a scenario that
-    takes them."""
+    holds its own assertions on both packages); ``keep`` as
+    ``Transcript``'s, ``mds_first`` as ``run_recorded``'s; ``fixtures``
+    hands the test's ``tmp_path``, ``capsys`` and parameters on to a
+    scenario that takes them."""
     out = {}
     for root in ROOTS:
         fn = _with_fixtures(getattr(twin(ref, root), name), root, fixtures)
-        out[root] = run_recorded(root, fn, monkeypatch)
+        out[root] = run_recorded(root, fn, monkeypatch, keep, mds_first)
         if polled:
             out[root] = polls_collapsed(out[root])
     if not compare:

@@ -3,8 +3,8 @@ package's.
 
 The scenarios of tests/test_dr_tools.py (monstore_tool's dump, get,
 install and rebuild, monmaptool, osdmaptool, the rebuild of a quorum lost
-whole, the objectstore tool's constants, and the file-view and push-cursor
-cases it also holds), tests/test_tools.py (rbd, radosgw-admin, the
+whole, the objectstore tool's constants, and the MDS lookup, file-view and
+push-cursor cases it also holds), tests/test_tools.py (rbd, radosgw-admin, the
 objectstore tool, ``rados export``/``import``, groups and namespaces
 through the rbd tool), tests/test_dencoder.py and the CLI cases of
 tests/test_harness.py (over TCP, each package's twin on a port range of
@@ -16,9 +16,8 @@ every gateway and block-image call with its result, and at teardown every
 RADOS object of every pool.  Every wire type the dencoder knows encodes to
 the same bytes in both packages.
 
-Not twinned: test_dr_tools' MDS case (it needs ``mds``, ROADMAP A12.4) and
-its case of ``bench.py``'s budget guard (the JAX package's benchmark
-harness, which the port has no counterpart of).
+Not twinned: test_dr_tools' case of ``bench.py``'s budget guard (the JAX
+package's benchmark harness, which the port has no counterpart of).
 """
 
 import pytest
@@ -31,6 +30,7 @@ DR = [n for n in (
     "test_monstore_install_preserves_old_store",
     "test_build_rebuild_tx_layout", "test_monmaptool_round_trip",
     "test_dr_rebuild_after_total_mon_loss",
+    "test_mds_stale_fragtree_retry_finds_moved_name",
     "test_ec_mesh_applier_pin_and_lru",
     "test_rgw_file_rename_subtree_guards",
     "test_rgw_push_cursor_load_backoff")]
@@ -42,11 +42,13 @@ TOOLS = [
 ]
 
 # Unit scenarios that call nothing the transcript records (the tools'
-# helpers, a backend's applier cache, a push cursor's backoff): each holds
-# its own assertions on both packages.
+# helpers, the MDS's dentry lookup over a stub, a backend's applier cache,
+# a push cursor's backoff): each holds its own assertions on both
+# packages.
 UNRECORDED = {"test_objectstore_tool_constants_match_daemon",
               "test_monstore_install_preserves_old_store",
               "test_build_rebuild_tx_layout",
+              "test_mds_stale_fragtree_retry_finds_moved_name",
               "test_ec_mesh_applier_pin_and_lru",
               "test_rgw_push_cursor_load_backoff",
               "test_detects_corruption"}
