@@ -1130,6 +1130,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _note_time_base(lines: list[str], recs) -> None:
+    """Say which clock the GiB/s and roofline shares above read: the
+    card's (CUDA events, ``time_base`` "device") or the host's around
+    each launch."""
+    bases = sorted({rec.get("time_base", "host") for rec in recs})
+    if bases:
+        lines.append(f"    time base: {', '.join(bases)}")
+
+
 def _render_top(d: dict, kernels: bool) -> str:
     """One `ceph-tpu top` frame from the ``ts status`` rollup: SLO
     verdicts, tenant-class burn pairs, utilization rates, defense
@@ -1172,6 +1181,7 @@ def _render_top(d: dict, kernels: bool) -> str:
             f"({util.get('roofline_pct', 0.0):g}% of roofline)  "
             f"occupancy {util.get('coalesce_occupancy', 0.0):g}  "
             f"resident hit {util.get('resident_hit_rate', 0.0):g}")
+        _note_time_base(lines, [util])
         lines.append(
             "  rebuild: "
             f"{util.get('rebuild_gibps', 0.0):g} GiB/s   client p99 "
@@ -1210,6 +1220,7 @@ def _render_top(d: dict, kernels: bool) -> str:
         lines.append("  kernels (per codec signature):")
         if not ktab:
             lines.append("    (no device launches recorded)")
+        _note_time_base(lines, ktab.values())
         for sig, rec in sorted(ktab.items()):
             lines.append(
                 f"    {sig:<28} {rec.get('launches', 0):>7} launches  "

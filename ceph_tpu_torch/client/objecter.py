@@ -205,8 +205,8 @@ class Objecter:
         try:
             if parent is not None or (prob and random.random() < prob):
                 with self.tracer.span("objecter:op_submit",
-                                      parent=parent, oid=oid,
-                                      pool=pool_id) as tctx:
+                                      parent=parent, ambient=True,
+                                      oid=oid, pool=pool_id) as tctx:
                     ret = await self._op_submit_impl(
                         pool_id, oid, ops, timeout, extra, tctx
                     )

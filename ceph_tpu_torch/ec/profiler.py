@@ -17,7 +17,16 @@ decode, mesh repair, host-mesh flush — to its codec signature
   ``ec_launch_bytes``), so per-signature byte totals reconcile with
   the existing counters EXACTLY — the profiler is an attribution of
   the counters, never a second opinion;
-- derived ``gibps`` and (given a peak) ``roofline_pct``.
+- ``device_us``: on a card, the launches' device time (CUDA events
+  around each launch's uploads, kernels and download; the SAME sample
+  that feeds ``ec_encode_device_us``/``ec_decode_device_us``, added by
+  ``record_device`` once the events have passed), kept only where
+  non-zero.  The events lie on the stream that every daemon of the
+  process shares, so other daemons' work queued between them counts
+  too;
+- derived ``gibps`` and (given a peak) ``roofline_pct``, from
+  ``device_us`` where a signature has it (``time_base`` "device"), else
+  from ``wall_us`` as the reference does.
 
 The dump rides the OSD's perf_dump under the ``ec_kernels`` key, the
 mgr persists per-signature series into the TSDB, and
@@ -61,6 +70,14 @@ class KernelProfiler:
             rec["stripes"] += int(stripes)
             rec["hbm_bytes"] += int(hbm_bytes)
 
+    def record_device(self, signature: str, device_us: float) -> None:
+        """Add a recorded launch's device time, read after the launch
+        (its events pass later than its host return)."""
+        with self._lock:
+            rec = self.kernels.get(signature)
+            if rec is not None:
+                rec["device_us"] = rec.get("device_us", 0.0) + device_us
+
     def totals(self) -> dict:
         with self._lock:
             t = {"launches": 0, "wall_us": 0.0, "stripes": 0,
@@ -79,6 +96,10 @@ class KernelProfiler:
                            for sig, rec in self.kernels.items())
         for sig, rec in items:
             wall_s = rec["wall_us"] / 1e6
+            if rec.get("device_us"):
+                wall_s = rec["device_us"] / 1e6
+                rec["device_us"] = round(rec["device_us"], 1)
+                rec["time_base"] = "device"
             gibps = (rec["hbm_bytes"] / _GIB / wall_s) \
                 if wall_s > 0 else 0.0
             rec["wall_us"] = round(rec["wall_us"], 1)

@@ -33,7 +33,14 @@ from ceph_tpu_torch.common.crc32c import crc32c
 from ceph_tpu_torch.common.log import Dout
 from ceph_tpu_torch.common.perf import CounterType, PerfCounters
 from ceph_tpu_torch.common.throttle import Throttle
-from ceph_tpu_torch.common.tracing import SpanCtx, Tracer
+from ceph_tpu_torch.common.tracing import (
+    LoopLabel,
+    SpanCtx,
+    Tracer,
+    hold_loop_trace,
+    untraced_context,
+    watch_trace_probability,
+)
 from ceph_tpu_torch.msg.codec import decode, encode
 from ceph_tpu_torch.msg.message import Message
 
@@ -46,6 +53,20 @@ _LEN = struct.Struct("<I")
 
 _RECONNECT_DELAY = 0.02
 _MAX_RECONNECT_DELAY = 1.0
+# the messenger's loop time while the loop is traced: a message's
+# encode, then its frame's CRC and write (the writer task); a frame's
+# read, CRC check and decode (the reader task)
+_SEND = LoopLabel("msgr:send")
+_RECV = LoopLabel("msgr:recv")
+
+
+def _recv_done(msg: Message) -> None:
+    """The reader task keeps ``msgr:recv`` through a traced message's
+    hand-off to its ``msgr:dispatch`` span, and lets go before an
+    untraced one's dispatch: that is its handler's work, and the tasks
+    the handler starts must not inherit the label."""
+    if not (isinstance(msg.data, dict) and "tctx" in msg.data):
+        _RECV.release()
 
 
 class MessengerError(ConnectionError):
@@ -233,7 +254,8 @@ class Connection:
         if self._closed:
             raise MessengerError(f"connection to {self.peer_addr} closed")
         self.out_seq += 1
-        payload = encode(msg.to_wire())
+        with _SEND:
+            payload = encode(msg.to_wire())
         if not self.policy.lossy:
             self._sent_unacked.append((self.out_seq, payload))
         self._out.put_nowait((self.out_seq, payload))
@@ -277,9 +299,13 @@ class Connection:
         self._ready.set()
 
     def _start_io(self) -> None:
+        # the I/O tasks start with no span ambient: a session dialled
+        # inside a traced op must not keep that op's span
         self._tasks = [
-            asyncio.create_task(self._writer_loop()),
-            asyncio.create_task(self._reader_loop()),
+            asyncio.create_task(self._writer_loop(),
+                                context=untraced_context()),
+            asyncio.create_task(self._reader_loop(),
+                                context=untraced_context()),
         ]
 
     def _stop_io(self) -> None:
@@ -288,6 +314,7 @@ class Connection:
         self._tasks = []
 
     async def _writer_loop(self) -> None:
+        _SEND.hold()
         try:
             while not self._closed:
                 await self._ready.wait()
@@ -336,6 +363,7 @@ class Connection:
                 if stream is None:
                     self._ready.clear()
                     continue
+                _RECV.hold()
                 try:
                     raw = await stream.read_exactly(_FRAME_HDR.size)
                     seq, ack, length, crc = _FRAME_HDR.unpack(raw)
@@ -374,6 +402,7 @@ class Connection:
                         MessengerError(f"bad payload: {e}")
                     )
                     continue
+                _recv_done(msg)
                 self.in_seq = seq
                 throttle = self.msgr._dispatch_throttle(self)
                 if throttle is not None:
@@ -406,7 +435,8 @@ class Connection:
             self.msgr._forget(self)
             self.msgr._notify_reset(self)
         elif self.initiator:
-            asyncio.get_running_loop().create_task(self._reconnect_loop())
+            asyncio.get_running_loop().create_task(
+                self._reconnect_loop(), context=untraced_context())
         # else: lossless acceptor goes standby; initiator will come back
 
     def _stop_io_soon(self) -> None:
@@ -458,10 +488,21 @@ class Messenger:
         self.perf.add("dispatch", CounterType.U64)
         self.perf.add("dispatch_latency_us", CounterType.HISTOGRAM)
         self.tracer = Tracer(name)
+        watch_trace_probability(conf, self._sync_loop_trace)
 
     # -- setup -----------------------------------------------------------
     def set_dispatcher(self, d: Dispatcher) -> None:
         self.dispatcher = d
+
+    def _sync_loop_trace(self, *_) -> None:
+        """Trace the event loop's steps while this entity samples ops
+        (``trace_probability`` above 0) and runs."""
+        try:
+            prob = float(self.conf["trace_probability"] or 0.0) \
+                if self.conf is not None else 0.0
+        except KeyError:
+            prob = 0.0
+        hold_loop_trace(self, prob > 0 and not self._stopped)
 
     def set_policy(self, entity_type: str, policy: Policy) -> None:
         """Policy for peers whose name starts with ``entity_type.``"""
@@ -506,9 +547,11 @@ class Messenger:
                     "tcp", a.host, self._server.sockets[0].getsockname()[1]
                 )
         self.my_addr = a
+        self._sync_loop_trace()
 
     async def shutdown(self) -> None:
         self._stopped = True
+        self._sync_loop_trace()
         for conn in list(self._conns.values()) + list(self._accepted.values()):
             conn.mark_down()
         if self._server is not None:
@@ -547,7 +590,7 @@ class Messenger:
                 log.dout(10, "%s: initial dial to %s failed (%s); "
                          "queueing for reconnect", self.name, addr, e)
                 asyncio.get_running_loop().create_task(
-                    conn._reconnect_loop()
+                    conn._reconnect_loop(), context=untraced_context()
                 )
             self._conns[addr] = conn
             conn._start_io()
@@ -573,6 +616,7 @@ class Messenger:
         return conn
 
     async def _dial(self, conn: Connection) -> None:
+        self._sync_loop_trace()
         a = EntityAddr.parse(conn.peer_addr)
         self._maybe_inject_failure("msgr.dial")
         if a.scheme == "local":
@@ -582,7 +626,8 @@ class Messenger:
             ours, theirs = QueueStream.pair()
             stream: Stream = ours
             accept_task = asyncio.create_task(
-                target._accept_stream(theirs, str(a))
+                target._accept_stream(theirs, str(a)),
+                context=untraced_context(),
             )
         else:
             reader, writer = await asyncio.open_connection(a.host, a.port)
@@ -843,7 +888,7 @@ class Messenger:
         try:
             if tctx is not None:
                 with self.tracer.span("msgr:dispatch", parent=tctx,
-                                      type=msg.type):
+                                      ambient=True, type=msg.type):
                     await self.dispatcher.ms_dispatch(conn, msg)
             else:
                 await self.dispatcher.ms_dispatch(conn, msg)

@@ -48,6 +48,7 @@ from ceph_tpu_torch.common.tracing import (
     SpanCtx,
     Tracer,
     current_span,
+    reply_trace,
     use_span,
 )
 from ceph_tpu_torch.ec.engine import resolve_device
@@ -4570,7 +4571,8 @@ class OSDDaemon:
     def _reply(self, conn: Connection, tid: int, rc: int, **extra) -> None:
         try:
             conn.send_message(Message(
-                "osd_op_reply", {"tid": tid, "rc": rc, **extra}
+                "osd_op_reply", {"tid": tid, "rc": rc, **extra,
+                                 **reply_trace()}
             ))
         except ConnectionError:
             pass
@@ -5168,7 +5170,8 @@ class OSDDaemon:
         ctx = current_span()
         if ctx is not None and "tctx" not in args:
             with self.tracer.span(f"osd:sub_op:{kind}:send",
-                                  parent=ctx, to=osd) as child:
+                                  parent=ctx, ambient=True,
+                                  to=osd) as child:
                 return await self._send_sub_op_impl(
                     osd, kind, tctx=child.to_wire(), **args
                 )
@@ -5250,6 +5253,7 @@ class OSDDaemon:
         if tctx is not None:
             with self.tracer.span(
                 f"osd:sub_op:{d.get('kind', '?')}", parent=tctx,
+                ambient=True,
             ):
                 await self._handle_sub_op_inner(conn, d)
             return
@@ -5379,7 +5383,7 @@ class OSDDaemon:
 
     def _sub_reply(self, conn: Connection, tid: int, rc: int,
                    value=None) -> None:
-        payload = {"tid": tid, "rc": rc, "value": value}
+        payload = {"tid": tid, "rc": rc, "value": value, **reply_trace()}
         if self.cephx:
             # replies carry the same service-secret MAC as requests:
             # a forged ack would otherwise count as a replica commit

@@ -37,7 +37,9 @@ repairs.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import json
+import threading
 import time
 from dataclasses import dataclass
 from typing import Mapping, Protocol, Sequence
@@ -63,6 +65,132 @@ from ceph_tpu_torch.store.device_cache import (DeviceShardCache,
 
 HINFO_ATTR = "hinfo"
 VERSION_ATTR = "version"
+
+
+# -- device time of EC launches ----------------------------------------------
+# Every launch runs in a worker thread between two CUDA events on the
+# current stream, around the uploads, kernels and download it enqueues
+# there.  Nothing waits for them: a launch that downloads has passed its
+# end event when it returns, and one whose result stays on the card is
+# read at a later launch or download of its backend.  The stream is the
+# default stream that every daemon of the process shares, so the
+# interval also holds the other daemons' copies and kernels queued
+# between the two events: it is the launch's span on the card, not its
+# own device time.  ``ec_encode_device_us`` / ``ec_decode_device_us``
+# take it; the host-timed ``ec_*_launch_us`` stay as the reference's.
+
+# the card's clock is placed on the host's anew once a second, by an
+# event bracketed by two host clock reads; a bracket wider than
+# ANCHOR_BRACKET_NS (the loop thread held the interpreter lock, or a
+# pageable copy held up the CUDA runtime) is not taken while the anchor
+# in use is younger than ANCHOR_KEEP_NS, and is tried again after
+# ANCHOR_RETRY_NS
+ANCHOR_NS = 1_000_000_000
+ANCHOR_BRACKET_NS = 20_000
+ANCHOR_KEEP_NS = 5_000_000_000
+ANCHOR_RETRY_NS = 100_000_000
+_ANCHOR_TRIES = 8
+# device index -> (anchor event, its perf_counter_ns, the anchor stream,
+# when to take the next)
+_ANCHORS: dict[int, tuple] = {}
+_ANCHOR_LOCK = threading.Lock()
+# the launch timings of the running coalesced flush, for its span
+_FLUSH_TIMINGS: contextvars.ContextVar[list | None] = \
+    contextvars.ContextVar("ec_flush_timings", default=None)
+
+
+class LaunchTiming:
+    """One launch: the worker thread's CPU and, on a CUDA device once
+    ``done``, its device interval (``device_us``) and the interval's
+    start on the ``perf_counter_ns`` clock (``dev_t_ns``)."""
+
+    __slots__ = ("thread_ns", "device_us", "dev_t_ns", "_events")
+
+    def __init__(self, thread_ns: int, events: tuple | None = None):
+        self.thread_ns = thread_ns
+        self.device_us = 0.0
+        self.dev_t_ns = 0
+        # (anchor event, its perf_counter_ns, start event, end event)
+        self._events = events
+
+    def done(self) -> bool:
+        """True once the device interval is read: at once off a card,
+        else when the end event has passed (no sync)."""
+        if self._events is None:
+            return True
+        anchor, anchor_ns, start, end = self._events
+        if not end.query():
+            return False
+        self.dev_t_ns = anchor_ns + round(anchor.elapsed_time(start) * 1e6)
+        self.device_us = start.elapsed_time(end) * 1e3
+        self._events = None
+        return True
+
+
+def _anchor(device: torch.device) -> tuple:
+    """(event, perf_counter_ns, ...): the card's clock placed on the
+    host's.  The event runs on a stream of its own, which holds nothing
+    else, and is awaited without giving up the interpreter lock; of a
+    few tries, the tightest host bracket wins."""
+    now = time.perf_counter_ns()
+    a = _ANCHORS.get(device.index)
+    if a is not None and now < a[3]:
+        return a
+    with _ANCHOR_LOCK:
+        a = _ANCHORS.get(device.index)
+        if a is not None and now < a[3]:
+            return a
+        stream = a[2] if a is not None else torch.cuda.Stream(device)
+        best = None
+        for _ in range(_ANCHOR_TRIES):
+            ev = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter_ns()
+            ev.record(stream)
+            while not ev.query():
+                pass
+            t1 = time.perf_counter_ns()
+            if best is None or t1 - t0 < best[0]:
+                best = (t1 - t0, ev, (t0 + t1) // 2)
+        if a is not None and best[0] > ANCHOR_BRACKET_NS \
+                and now - a[1] < ANCHOR_KEEP_NS:
+            a = (a[0], a[1], stream, now + ANCHOR_RETRY_NS)
+        else:
+            a = (best[1], best[2], stream, best[2] + ANCHOR_NS)
+        _ANCHORS[device.index] = a
+        return a
+
+
+def _timed_call(device: torch.device, fn, args: tuple):
+    """``fn(*args)`` in a worker thread: (its result, LaunchTiming)."""
+    th0 = time.thread_time_ns()
+    if device.type != "cuda":
+        out = fn(*args)
+        return out, LaunchTiming(time.thread_time_ns() - th0)
+    anchor, anchor_ns = _anchor(device)[:2]
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    out = fn(*args)
+    end.record(stream)
+    return out, LaunchTiming(time.thread_time_ns() - th0,
+                             (anchor, anchor_ns, start, end))
+
+
+def _launch_clock(t_ns: int, timings: list) -> dict:
+    """The fields of an ``osd:ec:launch`` span: its start on the
+    ``perf_counter_ns`` clock, the workers' CPU, and where the launch
+    ran on a card, its device interval on the same clock."""
+    clock = {"t_ns": t_ns,
+             "thread_ms": round(sum(t.thread_ns for t in timings) / 1e6,
+                                6)}
+    dev = [t for t in timings if t.device_us]
+    if dev:
+        first = min(t.dev_t_ns for t in dev)
+        last = max(t.dev_t_ns + round(t.device_us * 1e3) for t in dev)
+        clock["dev_t_ns"] = first
+        clock["dev_ms"] = round((last - first) / 1e6, 6)
+    return clock
 
 
 class ShardIO(Protocol):
@@ -424,6 +552,9 @@ class CoalescedLauncher:
             be.perf.hinc("ec_coalesce_wait_hist_us", wait_us)
         wall0 = time.time()
         t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
+        timings: list[LaunchTiming] = []
+        tok = _FLUSH_TIMINGS.set(timings)
         try:
             outs = await be._coalesce_launch(
                 key, [it.payload for it in live])
@@ -455,6 +586,8 @@ class CoalescedLauncher:
                 else:
                     it.fut.set_result(out)
             return
+        finally:
+            _FLUSH_TIMINGS.reset(tok)
         launch_ms = (time.perf_counter() - t0) * 1e3
         self.launches += 1
         self.ops += len(live)
@@ -466,17 +599,24 @@ class CoalescedLauncher:
                 "coalesce.flush", op=str(key[0]), ops=len(live),
                 stripes=sum(it.nstripes for it in live),
                 launch_ms=round(launch_ms, 3))
-        if be.tracer is not None:
+        spans = [it.span for it in live if it.span is not None] \
+            if be.tracer is not None else []
+        if spans:
             # one measured device launch serves every sampled
             # batchmate: record the same interval once per interested
-            # parent so each trace tree shows the shared launch
+            # parent so each trace tree shows the shared launch, once
+            # its device interval is known
             nstripes = sum(it.nstripes for it in live)
-            for it in live:
-                if it.span is not None:
+
+            def record() -> None:
+                clock = _launch_clock(t0_ns, timings)
+                for span in spans:
                     be.tracer.record(
-                        "osd:ec:launch", it.span, wall0, launch_ms,
-                        op=key[0], occupancy=len(live),
+                        "osd:ec:launch", span, wall0, launch_ms,
+                        clock=clock, op=key[0], occupancy=len(live),
                         stripes=nstripes)
+
+            be._when_timed(timings, record)
         for it, out in zip(live, outs):
             if not it.fut.done():
                 it.fut.set_result(out)
@@ -626,6 +766,7 @@ class ECBackend:
                    "ec_mesh_occupancy"):
             self.perf.add(_k, CounterType.LONGRUNAVG)
         for _k in ("ec_encode_launch_us", "ec_decode_launch_us",
+                   "ec_encode_device_us", "ec_decode_device_us",
                    "ec_coalesce_wait_hist_us", "ec_mesh_launch_us",
                    # per-shard-read latency as observed by this primary
                    # — the distribution the QoS controller derives each
@@ -672,6 +813,9 @@ class ECBackend:
         # cross-op micro-batching of device launches (the tentpole):
         # ops in flight concurrently share one encode/decode launch
         self._inflight_ops = 0
+        # launches whose device interval is still to be read, and what
+        # to do with it then (_when_timed)
+        self._dev_waiting: list[tuple[list, object]] = []
         self.coalescer = CoalescedLauncher(
             self, window_us=coalesce_window_us,
             max_stripes=coalesce_max_stripes,
@@ -794,6 +938,8 @@ class ECBackend:
         out = arr.cpu().numpy() if isinstance(arr, torch.Tensor) \
             else np.asarray(arr)
         self.perf.inc("ec_resident_d2h_bytes", out.nbytes)
+        if self._dev_waiting:
+            self._settle_device_times()
         return out
 
     def _to_device(self, arr):
@@ -809,6 +955,49 @@ class ECBackend:
 
     def _zeros(self, n: int) -> torch.Tensor:
         return torch.zeros(n, dtype=torch.uint8, device=self.device)
+
+    async def _launch(self, fn, *args):
+        """One device launch off the event loop: (result,
+        LaunchTiming)."""
+        return await asyncio.to_thread(_timed_call, self.device, fn, args)
+
+    def _device_time(self, timing: LaunchTiming | None, kind: str
+                     ) -> None:
+        """Count a launch's device time (none off a card) under its
+        ``kind`` of launch ("enc", "dec", "mesh-repair") once it is
+        known, and hand its timing to the coalesced flush that runs it,
+        if one does."""
+        if timing is None:
+            return
+        flush = _FLUSH_TIMINGS.get()
+        if flush is not None:
+            flush.append(timing)
+
+        def count() -> None:
+            if timing.device_us:
+                self.perf.hinc("ec_encode_device_us" if kind == "enc"
+                               else "ec_decode_device_us",
+                               timing.device_us)
+                self.profiler.record_device(f"{self.codec_sig}:{kind}",
+                                            timing.device_us)
+
+        self._when_timed([timing], count)
+
+    def _when_timed(self, timings: list, then) -> None:
+        """Call ``then()`` once every launch of ``timings`` has its
+        device interval: now where its events have passed, else at a
+        later launch or download of this backend."""
+        self._dev_waiting.append((timings, then))
+        self._settle_device_times()
+
+    def _settle_device_times(self) -> None:
+        waiting = []
+        for timings, then in self._dev_waiting:
+            if all(t.done() for t in timings):
+                then()
+            else:
+                waiting.append((timings, then))
+        self._dev_waiting = waiting
 
     async def _encode_batch(self, stripes) -> np.ndarray:
         """(B, k, C) -> (B, k+m, C), through the mesh plane when one is
@@ -832,12 +1021,13 @@ class ECBackend:
             self.mesh_stats["encode_buckets"].add(int(stripes.shape[0]))
             self.perf.inc("ec_device_launches")
             t0 = time.perf_counter()
-            out = await asyncio.to_thread(
+            out, timing = await self._launch(
                 self.ec.encode_chunks_device, stripes)
             dt_us = (time.perf_counter() - t0) * 1e6
             self.perf.hinc("ec_encode_launch_us", dt_us)
             self.profiler.record(f"{self.codec_sig}:enc", dt_us,
                                  stripes=b, hbm_bytes=in_bytes)
+            self._device_time(timing, "enc")
             return out[:b]
         in_bytes = stripes.nbytes if hasattr(stripes, "nbytes") else 0
         stripes, b = pad_batch_pow2(stripes)
@@ -851,23 +1041,25 @@ class ECBackend:
         if self.mesh is not None:
             ap = self._mesh_applier(
                 ("enc",), lambda: self._mesh_gen[self.k:])
-            parity = await asyncio.to_thread(ap, stripes)
+            parity, timing = await self._launch(ap, stripes)
             self.mesh_stats["encodes"] += 1
             dt_us = (time.perf_counter() - t0) * 1e6
             self.perf.hinc("ec_encode_launch_us", dt_us)
             self.profiler.record(f"{self.codec_sig}:enc", dt_us,
                                  stripes=b, hbm_bytes=in_bytes)
+            self._device_time(timing, "enc")
             out = np.concatenate(
                 [np.asarray(stripes, np.uint8), parity], axis=1)[:b]
             self.perf.inc("ec_resident_d2h_bytes", out.nbytes)
             return out
-        out = np.asarray(await asyncio.to_thread(
-            self.ec.encode_chunks_batch, stripes
-        ))[:b]
+        out, timing = await self._launch(
+            self.ec.encode_chunks_batch, stripes)
+        out = np.asarray(out)[:b]
         dt_us = (time.perf_counter() - t0) * 1e6
         self.perf.hinc("ec_encode_launch_us", dt_us)
         self.profiler.record(f"{self.codec_sig}:enc", dt_us,
                              stripes=b, hbm_bytes=in_bytes)
+        self._device_time(timing, "enc")
         self.perf.inc("ec_resident_d2h_bytes", out.nbytes)
         return out
 
@@ -915,24 +1107,27 @@ class ECBackend:
                     ("dec", survivors, tuple(todo)), lambda: D)
                 stacked = np.stack([avail[s] for s in survivors],
                                    axis=1)
-                rebuilt = await asyncio.to_thread(ap, stacked)
+                rebuilt, timing = await self._launch(ap, stacked)
                 for i, w in enumerate(todo):
                     out[w] = np.asarray(rebuilt[:b, i])
                     self.perf.inc("ec_resident_d2h_bytes",
                                   out[w].nbytes)
                 self.mesh_stats["decodes"] += 1
+            else:
+                timing = None
             dt_us = (time.perf_counter() - t0) * 1e6
             self.perf.hinc("ec_decode_launch_us", dt_us)
             self.profiler.record(f"{self.codec_sig}:dec", dt_us,
                                  stripes=b, hbm_bytes=in_bytes)
+            self._device_time(timing, "dec")
             return out
-        out = await asyncio.to_thread(
-            self.ec.decode_chunks_batch, batched, missing
-        )
+        out, timing = await self._launch(
+            self.ec.decode_chunks_batch, batched, missing)
         dt_us = (time.perf_counter() - t0) * 1e6
         self.perf.hinc("ec_decode_launch_us", dt_us)
         self.profiler.record(f"{self.codec_sig}:dec", dt_us,
                              stripes=b, hbm_bytes=in_bytes)
+        self._device_time(timing, "dec")
         res = {w: np.asarray(c)[:b] for w, c in out.items()}
         # only rebuilt chunks cross back down; available targets are
         # passed through as the same host arrays
@@ -964,10 +1159,11 @@ class ECBackend:
         t0 = time.perf_counter()
         out = {w: batched[w][:b] for w in missing if w in batched}
         todo = [w for w in missing if w not in batched]
+        timing = None
         if todo:
             if len(avail) < self.k:
                 raise IOError(f"cannot decode {todo}")
-            rebuilt = await asyncio.to_thread(
+            rebuilt, timing = await self._launch(
                 self.ec.decode_chunks_device, avail, todo)
             for i, w in enumerate(todo):
                 out[w] = rebuilt[:b, i]
@@ -975,6 +1171,7 @@ class ECBackend:
         self.perf.hinc("ec_decode_launch_us", dt_us)
         self.profiler.record(f"{self.codec_sig}:dec", dt_us,
                              stripes=b, hbm_bytes=in_bytes)
+        self._device_time(timing, "dec")
         return out
 
     # -- cross-op coalescing (CoalescedLauncher front ends) ---------------
@@ -1180,14 +1377,15 @@ class ECBackend:
         self.perf.inc("ec_launch_bytes", chunks.nbytes)
         self.perf.inc("ec_resident_h2d_bytes", chunks.nbytes)
         t0 = time.perf_counter()
-        rec = np.asarray(await asyncio.to_thread(
-            repair, mesh, ec, chunks, lost))[:b]
+        rec, timing = await self._launch(repair, mesh, ec, chunks, lost)
+        rec = np.asarray(rec)[:b]
         launch_us = (time.perf_counter() - t0) * 1e6
         self.perf.hinc("ec_decode_launch_us", launch_us)
         self.perf.hinc("ec_mesh_launch_us", launch_us)
         self.profiler.record(f"{self.codec_sig}:mesh-repair",
                              launch_us, stripes=b,
                              hbm_bytes=chunks.nbytes)
+        self._device_time(timing, "mesh-repair")
         self.perf.inc("ec_mesh_ici_bytes", moved)
         self.perf.inc("ec_mesh_ici_whole_bytes", whole)
         self.perf.inc("ec_resident_d2h_bytes", rec.nbytes)
@@ -2592,13 +2790,14 @@ class ECBackend:
         self.perf.inc("ec_launch_bytes", stacked.nbytes)
         self.perf.inc("ec_resident_h2d_bytes", stacked.nbytes)
         t0 = time.perf_counter()
-        rec = await asyncio.to_thread(
+        rec, timing = await self._launch(
             batched_lrc_group_repair, self.ec, plan.matrix, stacked)
         dt_us = (time.perf_counter() - t0) * 1e6
         self.perf.hinc("ec_decode_launch_us", dt_us)
         self.profiler.record(f"{self.codec_sig}:dec", dt_us,
                              stripes=stacked.shape[0],
                              hbm_bytes=stacked.nbytes)
+        self._device_time(timing, "dec")
         self.perf.inc("ec_resident_d2h_bytes", rec.nbytes)
         return rec
 
@@ -2613,13 +2812,14 @@ class ECBackend:
         self.perf.inc("ec_launch_bytes", flat.nbytes)
         self.perf.inc("ec_resident_h2d_bytes", flat.nbytes)
         t0 = time.perf_counter()
-        rec = await asyncio.to_thread(
+        rec, timing = await self._launch(
             batched_clay_plane_repair, self.ec, plan.matrix, flat)
         dt_us = (time.perf_counter() - t0) * 1e6
         self.perf.hinc("ec_decode_launch_us", dt_us)
         self.profiler.record(f"{self.codec_sig}:dec", dt_us,
                              stripes=flat.shape[0],
                              hbm_bytes=flat.nbytes)
+        self._device_time(timing, "dec")
         self.perf.inc("ec_resident_d2h_bytes", rec.nbytes)
         return rec
 

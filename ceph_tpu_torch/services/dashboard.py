@@ -62,6 +62,13 @@ from ceph_tpu_torch.common.log import Dout
 log = Dout("dashboard")
 
 
+
+def _time_base_rows(util: dict) -> list[list[str]]:
+    """The clock the device GiB/s and roofline rows read: the card's
+    (CUDA events) or the host's around each launch."""
+    return [["EC launch time base",
+             html.escape(util.get("time_base", "host"))]]
+
 class Dashboard:
     def __init__(self, mgr, host: str = "127.0.0.1", port: int = 0,
                  api_token: str | None = None):
@@ -501,6 +508,7 @@ class Dashboard:
                  esc(f"{util.get('device_gibps', 0.0):g}")],
                 ["HBM roofline %",
                  esc(f"{util.get('roofline_pct', 0.0):g}%")],
+                *_time_base_rows(util),
                 ["coalesce occupancy (ops/launch)",
                  esc(f"{util.get('coalesce_occupancy', 0.0):g}")],
                 ["coalesce wait p50/p99 µs",

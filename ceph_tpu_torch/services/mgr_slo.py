@@ -39,6 +39,21 @@ from ceph_tpu_torch.common.slo import (
 from ceph_tpu_torch.services.mgr_modules import MgrModule
 
 
+def _launch_time_base(win, host_s: float) -> tuple[float, str]:
+    """The window's EC launch seconds: the card's time where the OSDs
+    report it (``ec_*_device_us``), else the host's around each launch."""
+    enc, _ = win.hist("ec_encode_device_us")
+    dec, _ = win.hist("ec_decode_device_us")
+    dev_s = (enc.get("sum", 0.0) + dec.get("sum", 0.0)) / 1e6
+    return (dev_s, "device") if dev_s > 0 else (host_s, "host")
+
+
+def _time_base_entry(base: str) -> dict:
+    """``time_base`` in the utilization section where it is the card's
+    (the host's is the reference's, and is left unnamed)."""
+    return {"time_base": base} if base == "device" else {}
+
+
 class SLOMonitor(MgrModule):
     name = "slo"
 
@@ -198,6 +213,7 @@ class SLOMonitor(MgrModule):
         enc_h, _ = win.hist("ec_encode_launch_us")
         dec_h, _ = win.hist("ec_decode_launch_us")
         launch_s = (enc_h.get("sum", 0.0) + dec_h.get("sum", 0.0)) / 1e6
+        launch_s, time_base = _launch_time_base(win, launch_s)
         device_gibps = (launch_bytes / gib / launch_s) if launch_s > 0 \
             else 0.0
 
@@ -240,6 +256,7 @@ class SLOMonitor(MgrModule):
             "client_p50_ms": q_ms(cli_h, 0.5),
             "client_p99_ms": q_ms(cli_h, 0.99),
             "client_p999_ms": q_ms(cli_h, 0.999),
+            **_time_base_entry(time_base),
         }
 
     # -- mgr surfaces ------------------------------------------------------

@@ -38,6 +38,22 @@ FORENSIC_PREFIXES = ("slo.", "class.", "util.", "qos.", "tracer.",
 FORENSIC_WINDOW_S = 600.0
 
 
+def _add_device_us(agg: dict, rec: dict) -> None:
+    """Sum a signature's device time where the OSDs report one."""
+    dev = float(rec.get("device_us", 0.0) or 0.0)
+    if dev:
+        agg["device_us"] = agg.get("device_us", 0.0) + dev
+
+
+def _kernel_seconds(agg: dict, wall_s: float) -> float:
+    """A signature's launch seconds: the card's time where it was
+    measured (``time_base`` "device"), else the host's."""
+    if agg.get("device_us"):
+        agg["time_base"] = "device"
+        return agg["device_us"] / 1e6
+    return wall_s
+
+
 class TSDBMonitor(MgrModule):
     name = "ts"
 
@@ -115,6 +131,7 @@ class TSDBMonitor(MgrModule):
                 agg["stripes"] += int(rec.get("stripes", 0))
                 agg["wall_us"] += float(rec.get("wall_us", 0.0))
                 agg["hbm_bytes"] += int(rec.get("hbm_bytes", 0))
+                _add_device_us(agg, rec)
         feed["tracer.ring_evictions"] = evictions
         feed["tracer.orphan_spans"] = orphans
         rate = 0.0
@@ -132,6 +149,7 @@ class TSDBMonitor(MgrModule):
         peak = float(self.mgr.conf["ec_hbm_peak_gibps"] or 0.0)
         for sig, agg in kernels.items():
             wall_s = agg["wall_us"] / 1e6
+            wall_s = _kernel_seconds(agg, wall_s)
             agg["gibps"] = round(
                 agg["hbm_bytes"] / (1 << 30) / wall_s, 3) \
                 if wall_s > 0 else 0.0

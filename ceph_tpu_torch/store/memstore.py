@@ -15,6 +15,7 @@ import threading
 from dataclasses import dataclass, field
 
 from ceph_tpu_torch.common import failpoint as fp
+from ceph_tpu_torch.common.tracing import child_span
 from ceph_tpu_torch.store.object_store import ObjectStore, Transaction
 from ceph_tpu_torch.store.types import CollectionId, GHObject
 
@@ -206,11 +207,12 @@ class MemStore(ObjectStore):
 
     # -- reads -----------------------------------------------------------
     def read(self, cid, oid, offset=0, length=None) -> bytes:
-        with self._lock:
-            obj = self._get(cid, oid)
-            if length is None:
-                return bytes(obj.data[offset:])
-            return bytes(obj.data[offset:offset + length])
+        with child_span("store:read"):
+            with self._lock:
+                obj = self._get(cid, oid)
+                if length is None:
+                    return bytes(obj.data[offset:])
+                return bytes(obj.data[offset:offset + length])
 
     def stat(self, cid, oid) -> dict:
         with self._lock:

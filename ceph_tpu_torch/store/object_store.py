@@ -16,6 +16,7 @@ import asyncio
 from dataclasses import dataclass, field
 from typing import Any, Iterable
 
+from ceph_tpu_torch.common.tracing import child_span
 from ceph_tpu_torch.store.types import CollectionId, GHObject
 
 
@@ -108,7 +109,8 @@ class ObjectStore:
     ) -> None:
         if isinstance(txns, Transaction):
             txns = [txns]
-        await self._commit(txns)
+        with child_span("store:commit"):
+            await self._commit(txns)
 
     async def _commit(self, txns: list[Transaction]) -> None:
         raise NotImplementedError
