@@ -1,8 +1,9 @@
 """crc32c (Castagnoli) with a native C fast path.
 
 Counterpart of ceph_tpu/common/crc32c.py.  Loads the port's own native
-library through ctypes: its copy of the slice-by-8 C source
-(``ceph_tpu_torch/native/crc32c.c``) and of the WAL engine
+library through ctypes: its copy of the C source
+(``ceph_tpu_torch/native/crc32c.c``: the CPU's CRC32 instruction where it
+has one, else a slice-by-8 table loop) and of the WAL engine
 (``native/wal_engine.cc``, which calls ``ceph_tpu_crc32c``; bound by
 ``store/native_wal.py``) linked into one shared object, built at first use
 with
@@ -15,7 +16,8 @@ into ``ceph_tpu_torch/_build/`` (gitignored, named by a hash of the
 sources and the flags, published with an atomic rename so concurrent
 first uses never load a half-written file).  Without a C compiler it falls
 back to the pure-Python table loop.  ``backend()`` says which one
-serves.
+serves, ``native_path()`` which path of the C source, and ``stats()`` how
+many calls and bytes each served.
 
 Semantics match ceph_crc32c(seed, buf, len) (reference
 src/common/crc32c.h): callers chain seeds; ECUtil HashInfo uses the
@@ -82,6 +84,9 @@ def _load_native():
             lib.ceph_tpu_crc32c.argtypes = (
                 ctypes.c_uint32, ctypes.c_char_p, ctypes.c_size_t,
             )
+            lib.ceph_tpu_crc32c_path.restype = ctypes.c_char_p
+            lib.ceph_tpu_crc32c_stats.argtypes = (
+                ctypes.POINTER(ctypes.c_uint64),)
             _native = lib
         except (OSError, subprocess.SubprocessError):
             _native = False
@@ -91,6 +96,24 @@ def _load_native():
 def backend() -> str:
     """"native" when the C library serves crc32c, else "python"."""
     return "native" if _load_native() else "python"
+
+
+def native_path() -> str:
+    """The C source's path chosen for this CPU: "sse4.2-3way",
+    "armv8-crc" or "table"; "python" without the native library."""
+    lib = _load_native()
+    return lib.ceph_tpu_crc32c_path().decode() if lib else "python"
+
+
+def stats() -> dict:
+    """Calls through the native crc32c since the library loaded, and the
+    bytes that the hardware path and the table loop served."""
+    out = (ctypes.c_uint64 * 3)()
+    lib = _load_native()
+    if lib:
+        lib.ceph_tpu_crc32c_stats(out)
+    return {"path": native_path(), "hw_bytes": out[0],
+            "table_bytes": out[1], "calls": out[2]}
 
 
 _TABLE = None

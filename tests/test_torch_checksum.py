@@ -9,7 +9,11 @@ package's values on the same seeded inputs (the cases of
 tests/test_checksum.py), tolerance 0.
 """
 
+import ctypes
+import re
 import shutil
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -50,13 +54,54 @@ def test_crc_table_matches_reference():
     assert crc_mod.table() == j_crc_mod._table()
 
 
-@pytest.mark.parametrize("length", [0, 1, 3, 4095, 4096, 65536])
-def test_crc32c_matches_reference(length):
+# The native library's paths, each called straight through ctypes: the
+# dispatching entry, the slice-by-8 table loop and the hardware loop (the
+# three-stream rounds of native/crc32c.c's two block sizes, its one-stream
+# loop, its bytewise head and tail).
+CRC_PATHS = ["ceph_tpu_crc32c", "ceph_tpu_crc32c_table", "ceph_tpu_crc32c_hw"]
+HW_BLOCKS = [int(b) for b in re.findall(
+    r"#define \w+_BLOCK (\d+)", crc_mod.SOURCE.read_text())]
+CRC_LENGTHS = sorted(set(range(65)) | {
+    n for b in HW_BLOCKS for n in (3 * b - 1, 3 * b, 3 * b + 7, 6 * b + 1)}
+    | {4095, 4096, 65536, 512 << 10, (4 << 20) + 5})
+
+
+def _native_crc(name):
+    """``name`` of the native library as f(seed, buffer, offset, length),
+    on a function object of its own (argtypes are per object)."""
+    if shutil.which("gcc") is None:
+        pytest.skip("no C compiler: the native library is not built")
+    if name == "ceph_tpu_crc32c_hw" and crc_mod.native_path() == "table":
+        pytest.skip("this CPU has no CRC32 instruction the library can use")
+    fn = crc_mod._load_native()[name]
+    fn.restype = ctypes.c_uint32
+    fn.argtypes = (ctypes.c_uint32, ctypes.c_void_p, ctypes.c_size_t)
+    return lambda seed, buf, off, n: fn(seed, ctypes.addressof(buf) + off, n)
+
+
+@pytest.mark.parametrize("length,path", [
+    pytest.param(n, "crc32c", id=str(n))
+    for n in [0, 1, 3, 4095, 4096, 65536]] + [
+    pytest.param(n, p, id=f"{p}-{n}") for p in CRC_PATHS
+    for n in CRC_LENGTHS])
+def test_crc32c_matches_reference(length, path):
+    """Each path against the JAX package's crc32c, exactly: seeds 0, all
+    ones and random; through ctypes also every start offset 0-7 into the
+    buffer (unaligned heads)."""
     rng = np.random.default_rng(length)
-    data = rng.integers(0, 256, length, np.uint8).tobytes()
-    for seed in [0, 0xFFFFFFFF] + [int(s) for s in
-                                   rng.integers(0, 1 << 32, 3)]:
-        assert crc32c(seed, data) == j_crc32c(seed, data)
+    seeds = [0, 0xFFFFFFFF] + [int(s) for s in rng.integers(0, 1 << 32, 3)]
+    if path == "crc32c":
+        data = rng.integers(0, 256, length, np.uint8).tobytes()
+        for seed in seeds:
+            assert crc32c(seed, data) == j_crc32c(seed, data)
+        return
+    crc = _native_crc(path)
+    data = rng.integers(0, 256, length + 7, np.uint8).tobytes()
+    buf = ctypes.create_string_buffer(data, len(data))
+    for off in range(8):
+        part = data[off:off + length]
+        for seed in seeds:
+            assert crc(seed, buf, off, length) == j_crc32c(seed, part)
 
 
 def test_python_table_loop_matches_native(monkeypatch):
@@ -67,10 +112,65 @@ def test_python_table_loop_matches_native(monkeypatch):
     assert crc32c(0x1234, data) == native
 
 
+@pytest.mark.skipif(shutil.which("gcc") is None,
+                    reason="no C compiler: crc32c serves from the Python "
+                           "table loop")
+def test_crc32c_stats_count_the_path_that_served(monkeypatch):
+    path = crc_mod.native_path()
+    assert path in ("sse4.2-3way", "armv8-crc", "table")
+    served = "table_bytes" if path == "table" else "hw_bytes"
+    idle = "hw_bytes" if path == "table" else "table_bytes"
+    sizes = [0, 7, 4096, (512 << 10) + 3]
+    before = crc_mod.stats()
+    for n in sizes:
+        crc32c(0, bytes(n))
+    after = crc_mod.stats()
+    assert after["path"] == path
+    assert after[served] - before[served] == sum(sizes)
+    assert after[idle] == before[idle]
+    assert after["calls"] - before["calls"] == len(sizes)
+    # ctypes lets go of the interpreter lock: threads count at once in C
+    calls, per = 16, 2000
+    before = crc_mod.stats()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            crc32c(0, bytes(100)) for _ in range(per)]) for _ in range(calls)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    after = crc_mod.stats()
+    assert after["calls"] - before["calls"] == calls * per
+    assert after[served] - before[served] == calls * per * 100
+    monkeypatch.setattr(crc_mod, "_native", False)
+    assert crc_mod.native_path() == "python"
+    assert crc_mod.stats() == {"path": "python", "hw_bytes": 0,
+                               "table_bytes": 0, "calls": 0}
+
+
 def test_crc32c_seed_chaining():
     a, b = _rows(2, 777, 9)
     whole = crc32c(0xFFFFFFFF, a.tobytes() + b.tobytes())
     assert crc32c(crc32c(0xFFFFFFFF, a.tobytes()), b.tobytes()) == whole
+    # splits that fall inside a three-stream block, on every native path
+    data = _rows(1, 6 * max(HW_BLOCKS) + 13, 10)[0].tobytes()
+    whole = j_crc32c(0xFFFFFFFF, data)
+    if shutil.which("gcc") is None:
+        return
+    paths = CRC_PATHS[:2] if crc_mod.native_path() == "table" else CRC_PATHS
+    cuts = [1, 5] + [n for b in HW_BLOCKS
+                     for n in (b // 2 + 3, 3 * b + b // 3)]
+    buf = ctypes.create_string_buffer(data, len(data))
+    for name in paths:
+        crc = _native_crc(name)
+        for cut in cuts:
+            head = crc(0xFFFFFFFF, buf, 0, cut)
+            assert crc(head, buf, cut, len(data) - cut) == whole, (name, cut)
 
 
 # -- the device CRC -----------------------------------------------------------
